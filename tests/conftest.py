@@ -13,6 +13,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: multi-minute model/distributed smoke tests")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (repro_torch kernels); skips elsewhere")
 
 
 @pytest.fixture(scope="session")
