@@ -6,7 +6,7 @@
 Phases, each of which fails the run by raising:
 
   1. environment: the card's name and power limit, torch's version;
-  2. build: the four CUDA sources under src/repro_torch/kernels/csrc,
+  2. build: the six CUDA sources under src/repro_torch/kernels/csrc,
      one nvcc each, in parallel, into build/repro_torch/;
   3. ragged kernels: each kernel against its plain PyTorch version at
      shapes that are not tile multiples (summary space: atol = rtol =
@@ -21,10 +21,20 @@ Phases, each of which fails the run by raising:
      share_gathers on iSAX2+ and DSTree. Kernel launch counts are zeroed
      before and read after; every exact row must score MAP 1.000 and
      return brute force's ids, apart from swaps between ties;
-  6. kernels at the main path's shapes: each kernel against its plain
+  6. out-of-core path: the DSTree of phase 5 saved as f32, bf16 and pq
+     stores under build/chip_smoke_stores/ (one at a time, deleted after
+     use), opened with resident="summaries" and searched through a device
+     cache of L // 8 leaves with the prefetcher on. f32 exact rows must
+     equal the in-memory DSTree rows; the bf16 row must equal the
+     in-memory search over the store's bfloat16 image; pq rows must meet
+     the epsilon bound against brute force after the exact re-rank.
+     Launch counts are zeroed before and read after this phase too, and
+     the two PQ kernels must have run in it;
+  7. kernels at the main path's shapes: each kernel against its plain
      version, timed with CUDA events beside the plain version, one
      PyTorch library call where one computes the same function, and the
-     least time the card could take (bound_ms).
+     least time the card could take (bound_ms). K1-K4 report their
+     launches on the in-memory path, K5 and K6 on the out-of-core path.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as its last line. Exits non-zero without a result when no CUDA device
@@ -35,10 +45,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, and device memory bandwidth. The f32 rate counts an FMA as two
@@ -62,15 +76,28 @@ KERNEL_ROWS = {
            "src/repro/kernels/l2_dist.py:23"),
     "coop_score_select": ("src/repro_torch/kernels/csrc/topk.cu",
                           "src/repro/kernels/topk.py:54"),
+    "pq_adc_batch": ("src/repro_torch/kernels/csrc/pq_adc.cu",
+                     "src/repro/kernels/pq_adc.py:23"),
+    "pq_adc_select": ("src/repro_torch/kernels/csrc/pq_adc_select.cu",
+                      "src/repro/kernels/pq_adc_select.py:40"),
 }
 
 
+# device cycles to hold the stream per timed launch while the host
+# enqueues: 0.3 ms at the H100's clock, more than a wrapper's host time
+HOLD_CYCLES_PER_REP = 600_000
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean milliseconds of fn() over reps launches, by CUDA events."""
+    """Mean milliseconds of fn() over reps launches, by CUDA events. The
+    stream first runs a spin kernel long enough for the host to enqueue
+    every launch behind it, so a kernel shorter than its wrapper's host
+    time is timed on the device, not at the host's launch rate."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES_PER_REP * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -209,7 +236,60 @@ def phase_ragged(torch, ops, ref) -> None:
                 raise AssertionError(f"{what}: integer inputs not exact")
         else:
             select_close(torch, got, want, q, rows, ids, what)
+    for b, r, m, per_lane in [(1, 1, 16, False), (3, 1001, 16, False),
+                              (7, 333, 16, True), (2, 4097, 8, False),
+                              (5, 65, 5, True), (100, 256, 16, True)]:
+        luts = torch.rand(b, m, 256, generator=g, device="cuda") * 4.0
+        shape = (b, r, m) if per_lane else (r, m)
+        codes = torch.randint(0, 256, shape, generator=g, device="cuda",
+                              dtype=torch.uint8)
+        if not torch.equal(ops.pq_adc_batch(codes, luts),
+                           ref.ref_pq_adc_batch(codes, luts)):
+            raise AssertionError(f"pq_adc_batch {shape} x {b} luts is not "
+                                 "bit-exact")
+    for b, r, m, kk, integer in [(5, 96, 16, 7, False),
+                                 (9, 1000, 16, 200, True),
+                                 (100, 3000, 16, 800, False),
+                                 (13, 5000, 16, 1024, True),
+                                 (3, 400, 7, 33, False)]:
+        luts = torch.rand(b, m, 256, generator=g, device="cuda") * 4.0
+        if integer:  # small integers: many exact ties, decided by id
+            luts = luts.floor()
+        codes = torch.randint(0, 256, (r, m), generator=g, device="cuda",
+                              dtype=torch.uint8)
+        ids = torch.randperm(r, generator=g, device="cuda").to(torch.int32)
+        ids[::7] = -1
+        got = ops.pq_adc_select(codes, luts, ids, kk)
+        want = ref.ref_pq_adc_select(codes, luts, ids, kk)
+        adc_select_close(torch, ref, got, want, codes, luts, ids,
+                         f"pq_adc_select {b}x{r}x{m} kk={kk}")
     torch.cuda.synchronize()
+
+
+def adc_select_close(torch, ref, got, want, codes, luts, ids,
+                     what: str) -> float:
+    """K6 against its plain version, by K4's rule: distances within the
+    distance tolerance, ids equal apart from swaps between ties of the
+    rows' ADC distances."""
+    err = dist_close(torch, got[0], want[0], what)
+    diff = got[1] != want[1]
+    if bool(diff.any()):
+        full = ref.ref_pq_adc_batch(codes, luts).double()
+        pos = torch.full((int(ids.max()) + 1,), 0, dtype=torch.long,
+                         device=ids.device)
+        ok = ids >= 0
+        pos[ids[ok].long()] = torch.nonzero(ok)[:, 0]
+
+        def adc(sel):
+            d = full.gather(1, pos[sel.long().clamp_min(0)])
+            return torch.where(sel >= 0, d, float("inf"))
+
+        dg, dw = adc(got[1]), adc(want[1])
+        gap = torch.where(diff, (dg - dw).abs(), torch.zeros_like(dg))
+        if bool((gap > DIST_ATOL + DIST_RTOL * dw.abs()).any()):
+            raise AssertionError(f"{what}: an id differs from the plain "
+                                 "version's where the two are no tie")
+    return err
 
 
 def quickstart(torch, S, G, idx_mods, data, q, k, leaf_cap, device,
@@ -314,7 +394,7 @@ def phase_small(torch, S, G, idx_mods, randomwalk, queries) -> None:
                   f"small {key} card vs CPU")
 
 
-def kernel_rows(torch, ops, ref, data_t, q_t, idx, vaf, k, counts):
+def kernel_rows(torch, ops, ref, data_t, q_t, idx, vaf, k, counts, pq_in):
     """Each kernel at the main path's shapes: its error against the plain
     version, then the kernel's, the plain version's and a library call's
     times, and the least time the card could take."""
@@ -382,7 +462,136 @@ def kernel_rows(torch, ops, ref, data_t, q_t, idx, vaf, k, counts):
         lambda: ref.ref_coop_score_select(*a),
         4 * (b * n + r * n + 2 * r) + 8 * b * kk,
         2 * b * r * n + 2 * b * n + 3 * b * r)
+
+    # K5: one query's ADC scan over the whole pq payload; the library
+    # form is two calls, a gather over the table and a sum
+    codes, luts = pq_in
+    m_rows, m = codes.shape
+    kq = luts.shape[2]
+    lut1 = luts[:1].contiguous()
+    got = ops.pq_adc_batch(codes, lut1)
+    if not torch.equal(got, ref.ref_pq_adc_batch(codes, lut1)):
+        raise AssertionError("pq_adc_batch main: not bit-exact")
+    flat = (codes.long() + torch.arange(m, device="cuda") * kq)
+    table = lut1.reshape(1, m * kq).expand(m_rows, -1)
+    add("pq_adc_batch", 0.0,
+        lambda: ops.pq_adc_batch(codes, lut1),
+        lambda: ref.ref_pq_adc_batch(codes, lut1),
+        m_rows * m + 4 * m * kq + 4 * m_rows, m_rows * m,
+        rate=PEAK_F32_INSTR,
+        library=lambda: torch.gather(table, 1, flat).sum(1))
+
+    # K6: one cooperative pq iteration of the out-of-core DSTree search
+    # (every lane pools a leaf of codes; kk = 2 k rerank)
+    r = b * idx.max_leaf
+    kk = min(2 * 4 * k, r)
+    pool = codes[:r].contiguous()
+    ids = torch.arange(r, dtype=torch.int32, device="cuda")
+    a = (pool, luts, ids, kk)
+    add("pq_adc_select",
+        adc_select_close(torch, ref, ops.pq_adc_select(*a),
+                         ref.ref_pq_adc_select(*a), pool, luts, ids,
+                         "pq_adc_select main"),
+        lambda: ops.pq_adc_select(*a), lambda: ref.ref_pq_adc_select(*a),
+        r * m + 4 * b * m * kq + 4 * r + 8 * b * kk, b * r * m,
+        rate=PEAK_F32_INSTR)
     return rows
+
+
+def print_ooc_table(rows) -> None:
+    hdr = (f"{'codec':5s} {'guarantee':14s} {'MAP':>6s} {'recall':>7s} "
+           f"{'MRE':>7s} {'leaves':>7s} {'%data':>7s} {'iters':>6s} "
+           f"{'ms':>9s} {'ms/iter':>8s} {'read MB':>9s} {'h2d MB':>8s} "
+           f"{'hit':>5s}")
+    print(hdr)
+    print("-" * len(hdr))
+    for r in rows:
+        print(f"{r['codec']:5s} {r['guarantee']:14s} {r['map']:6.3f} "
+              f"{r['recall']:7.3f} {r['mre']:7.4f} {r['leaves']:7.0f} "
+              f"{r['pct_data']:6.2f}% {r['iterations']:6d} "
+              f"{r['ms']:9.1f} {r['ms_per_iter']:8.3f} "
+              f"{r['bytes_read'] / 1e6:9.1f} {r['bytes_h2d'] / 1e6:8.1f} "
+              f"{r['hit_rate']:5.3f}")
+
+
+def phase_ooc(torch, S, G, index, q, truth, mem, k, root: Path):
+    """Save the DSTree as f32, bf16 and pq stores and answer the queries
+    out of core. Returns (table rows, store sizes and save seconds by
+    codec, (pq codes on the card, the queries' ADC tables))."""
+    from repro_torch.core.index import FrozenIndex
+    from repro_torch.core.metrics import workload_metrics
+    from repro_torch.core.summaries.pq import adc_lut_batch
+
+    runs = {
+        "f32": [("exact", G.exact(), False), ("exact+share", G.exact(), True)],
+        "bf16": [("d=.99,eps=1", G.delta_epsilon(0.99, 1.0), False)],
+        "pq": [("eps=1", G.epsilon(1.0), False),
+               ("eps=1+share", G.epsilon(1.0), True),
+               ("d=.99,eps=1+sh", G.delta_epsilon(0.99, 1.0), True)],
+    }
+    table, saved, pq_in = [], {}, None
+    n_series = index.n_total
+    for codec, cases in runs.items():
+        d = root / codec
+        t0 = time.perf_counter()
+        index.save(str(d), codec=codec)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        sizes = {f: os.path.getsize(d / f) for f in sorted(os.listdir(d))}
+        saved[codec] = (sec, sizes)
+        print(f"  saved {codec} in {sec:.1f} s: " + ", ".join(
+            f"{f} {b / 2**20:.1f} MiB" for f, b in sizes.items()))
+        store = FrozenIndex.load(str(d), resident="summaries")
+        for gname, g, share in cases:
+            t0 = time.perf_counter()
+            out = S.search_ooc(store, q, k, g, share_gathers=share)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            res, st = out.result, out.stats
+            what = f"ooc {codec} {gname}"
+            print(f"  {what}: {sec:.2f} s, {st.iterations} iterations")
+            if codec == "f32":
+                want = mem[("dstree", gname)]
+                for f in ("ids", "leaves_visited", "rows_scanned"):
+                    if not torch.equal(getattr(res, f), getattr(want, f)):
+                        raise AssertionError(f"{what}: {f} differ from the "
+                                             "in-memory DSTree search")
+            elif codec == "bf16":
+                want = S.search(FrozenIndex.load(str(d)), q, k, g)
+                for f in ("ids", "dists", "leaves_visited", "rows_scanned"):
+                    if not torch.equal(getattr(res, f), getattr(want, f)):
+                        raise AssertionError(f"{what}: {f} differ from the "
+                                             "in-memory search of the "
+                                             "bfloat16 image")
+            else:
+                ok = res.dists <= (1 + g.epsilon) * truth.dists \
+                    * (1 + 1e-4) + 1e-4
+                share_ok = float(ok.float().mean())
+                if (g.delta == 1.0 and not bool(ok.all())) or share_ok < 0.9:
+                    raise AssertionError(f"{what}: the epsilon bound holds "
+                                         f"for {share_ok:.3f} of the ranks")
+            if res.dists.shape != (q.shape[0], k) or not bool(
+                    torch.isfinite(res.dists[:, 0]).all()):
+                raise AssertionError(f"{what}: wrong shape or no finite "
+                                     "nearest neighbour")
+            m = workload_metrics(res.ids, res.dists, truth.ids, truth.dists)
+            table.append(dict(
+                codec=codec, guarantee=gname, map=m["map"],
+                recall=m["avg_recall"], mre=m["mre"],
+                leaves=float(res.leaves_visited.float().mean()),
+                pct_data=100 * float(res.rows_scanned.float().mean())
+                / n_series,
+                iterations=res.iterations, ms=sec * 1e3,
+                ms_per_iter=sec * 1e3 / max(res.iterations, 1),
+                bytes_read=st.bytes_read, bytes_h2d=st.bytes_h2d,
+                hit_rate=st.hit_rate))
+        if codec == "pq":
+            codes = torch.as_tensor(np.array(store.mmap), device="cuda")
+            pq_in = (codes, adc_lut_batch(store.codebook,
+                                          torch.as_tensor(q, device="cuda")))
+        del store
+        shutil.rmtree(d)
+    return table, saved, pq_in
 
 
 def main() -> int:
@@ -418,7 +627,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = build.build_all()
-    print(f"build: 4 kernels in {time.perf_counter() - t0:.1f} s "
+    print(f"build: {len(logs)} kernels in {time.perf_counter() - t0:.1f} s "
           f"into {build.BUILD_DIR}")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -442,7 +651,9 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s on the host)")
 
     wrappers = {"box_mindist": ops.box_mindist, "paa": ops.paa,
-                "l2": ops.l2, "coop_score_select": ops.coop_score_select}
+                "l2": ops.l2, "coop_score_select": ops.coop_score_select,
+                "pq_adc_batch": ops.pq_adc_batch,
+                "pq_adc_select": ops.pq_adc_select}
     for fn in wrappers.values():
         fn.launches = 0
     table, results, builds, built, truth = quickstart(
@@ -470,13 +681,38 @@ def main() -> int:
                 torch.isfinite(res.dists[:, 0]).all()):
             raise AssertionError("search output has the wrong shape or "
                                  "no finite nearest neighbour")
-    missing = [name for name, c in counts.items() if c == 0]
+    missing = [name for name, c in counts.items() if c == 0
+               and not name.startswith("pq_")]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
 
+    # the out-of-core path, with its own launch counts
+    root = Path(build.BUILD_DIR).parent / "chip_smoke_stores"
+    shutil.rmtree(root, ignore_errors=True)
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        ooc_table, saved, pq_in = phase_ooc(
+            torch, S, G, built["dstree"], q, truth, results, k, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ooc_counts = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"out-of-core DSTree ({time.perf_counter() - t0:.1f} s, cache "
+          f"of L // 8 leaves, prefetcher on):")
+    print_ooc_table(ooc_table)
+    print(f"launches on the out-of-core path: {ooc_counts}")
+    missing = [name for name in ("pq_adc_batch", "pq_adc_select")
+               if ooc_counts[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the out-of-core "
+                             f"path: {missing}")
+    counts.update({name: ooc_counts[name]
+                   for name in ("pq_adc_batch", "pq_adc_select")})
+
     rows = kernel_rows(torch, ops, ref, data_t, q_t, built["isax2+"],
-                       built["va+file"], k, counts)
+                       built["va+file"], k, counts, pq_in)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,8 +28,9 @@ class DistanceHistogram(NamedTuple):
 
 def build_histogram(data: np.ndarray, seed: int = DEFAULT_SEED,
                     n_pairs: int = 100_000, n_bins: int = 512, *,
-                    device="cpu") -> DistanceHistogram:
-    """Empirical F from random pairs of the sample (paper: 100K)."""
+                    device) -> DistanceHistogram:
+    """Empirical F from random pairs of the sample (paper: 100K), as
+    tensors on ``device`` (required: the builds pass their own)."""
     n = data.shape[0]
     rng = np.random.default_rng(int(seed))
     i = rng.integers(0, n, n_pairs)

@@ -65,6 +65,26 @@ class FrozenIndex:
             return dft_mod.transform(q, self.n_summary)
         raise ValueError(self.summary)
 
+    # --- the out-of-core tier (repro_torch.store)
+    def save(self, directory: str, **kw) -> str:
+        """Persist as a v2 store (leaf-contiguous data.bin + sidecar);
+        ``codec`` in {"f32", "bf16", "pq"} selects the leaf payload's
+        encoding, pq_* tune the codebook (store.layout.save_index)."""
+        from repro_torch.store import layout
+
+        return layout.save_index(self, directory, **kw)
+
+    @classmethod
+    def load(cls, directory: str, resident: str = "full",
+             device=device_mod.DEFAULT):
+        """resident="full" -> FrozenIndex; resident="summaries" ->
+        store.LeafStore, whose rows stay on disk (search them with
+        core.search.search_ooc)."""
+        from repro_torch.store import layout
+
+        return layout.load_index(directory, resident=resident,
+                                 device=device)
+
 
 def freeze_from_leaves(
     data: torch.Tensor,          # [N, n] f32, original order, on device

@@ -1,7 +1,7 @@
 """The refinement core of Algorithm 2: frontier, layout, dedup, scoring,
-stopping.
+stopping, and the leaf sources that supply residency.
 
-Counterpart of ``src/repro/core/refine.py`` for memory-resident indexes:
+Counterpart of ``src/repro/core/refine.py``:
 
   frontier    :class:`FrontierState` with :func:`frontier_tick` and
               :func:`frontier_advance`, the lazy visit-order window. A
@@ -14,8 +14,18 @@ Counterpart of ``src/repro/core/refine.py`` for memory-resident indexes:
               pooled twice in one iteration are masked, which keeps the
               cooperative merge's distinct-id precondition.
   scoring     :func:`refine_step`: score, select and merge one
-              iteration's candidates (solo, or pooled across lanes).
+              iteration's candidates, in four corners (solo or pooled
+              across lanes) x (raw rows or PQ codes).
   stopping    :func:`stop_mask`: Algorithm 2's predicates.
+
+A :class:`LeafSource` supplies residency to the one loop
+(``core/search.refine_loop``): ``query_ctx`` builds the scoring context,
+``gather`` makes a leaf window's rows reachable on the device
+(:class:`Gathered`), ``score`` folds them into the running top-k, and
+``finalize`` maps the final pool to the reported top-k. Implementations:
+:class:`ResidentSource` here (a device-resident FrozenIndex), and
+``store/ooc.CachedStoreSource`` / ``PQSource`` (leaves streamed from a
+store on disk through a device cache).
 
 Leaf ids and row positions are int64 here (torch indexes with int64);
 the ids of the rows themselves stay int32, as in the reference.
@@ -23,7 +33,7 @@ the ids of the rows themselves stay int32, as in the reference.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Protocol, runtime_checkable
 
 import torch
 
@@ -70,30 +80,40 @@ def frontier_init(b: int, f: int, device) -> FrontierState:
     )
 
 
-def frontier_window(st: FrontierState, v: int) -> torch.Tensor:
-    """[B, V] leaf ids at window positions pos .. pos+V-1, clamped to the
-    window's end (callers mask out-of-rank slots)."""
+def frontier_window(st: FrontierState, offset: int, v: int
+                    ) -> torch.Tensor:
+    """[B, V] leaf ids at window positions pos+offset .. pos+offset+V-1,
+    clamped to the window's end (callers mask out-of-rank slots).
+    offset=0 is this iteration's window, offset=d*V the d-th window the
+    prefetcher is asked to stage."""
     f = st.lb.shape[1]
-    ppos = torch.clamp(st.pos[:, None]
+    ppos = torch.clamp(st.pos[:, None] + offset
                        + torch.arange(v, device=st.pos.device)[None, :],
                        max=f - 1)
     return st.ids.gather(1, ppos)
 
 
-def frontier_tick(st: FrontierState, lb_sq: torch.Tensor,
-                  active: torch.Tensor, *, v: int) -> tuple:
-    """Refill the lanes whose window no longer covers this iteration's
-    v positions and the next lower bound (skipped when no lane needs
-    it), then emit this iteration's [B, V] leaf window."""
+def refill_need(st: FrontierState, active: torch.Tensor,
+                lookahead: int) -> torch.Tensor:
+    """[B] lanes whose window no longer covers the next ``lookahead``
+    positions and the next lower bound."""
     f = st.lb.shape[1]
-    need = active & (st.pos > f - 1 - min(v, f))
+    return active & (st.pos > f - 1 - min(lookahead, f))
+
+
+def frontier_tick(st: FrontierState, lb_sq: torch.Tensor,
+                  active: torch.Tensor, *, v: int, lookahead: int) -> tuple:
+    """Refill the lanes that :func:`refill_need` names (skipped when no
+    lane needs it), then emit this iteration's [B, V] leaf window."""
+    f = st.lb.shape[1]
+    need = refill_need(st, active, lookahead)
     if bool(need.any()):
         nv, ni = frontier_select(lb_sq, st.thr_lb, st.thr_id, f)
         sel = need[:, None]
         st = st._replace(lb=torch.where(sel, nv, st.lb),
                          ids=torch.where(sel, ni, st.ids),
                          pos=torch.where(need, 0, st.pos))
-    return st, frontier_window(st, v)
+    return st, frontier_window(st, 0, v)
 
 
 def frontier_advance(st: FrontierState, active: torch.Tensor, *, v: int
@@ -164,34 +184,62 @@ def coop_mask(leaf: torch.Tensor, ok: torch.Tensor,
 # ----------------------------------------------------------------- scoring
 class ScoreCtx(NamedTuple):
     """Per-query-batch scoring context."""
-    qf: torch.Tensor     # [B, n] f32 queries
-    ids: torch.Tensor    # [Npad] int32 row ids
-    norms: torch.Tensor  # [Npad] f32 squared row norms
+    qf: torch.Tensor                # [B, n] f32 queries
+    ids: torch.Tensor               # [Npad] int32 row ids
+    norms: Optional[torch.Tensor]   # [Npad] f32 squared row norms (raw)
+    luts: Optional[torch.Tensor] = None  # [B, m, K] ADC tables (pq only)
 
 
-def refine_step(ctx: ScoreCtx, data: torch.Tensor, idx: torch.Tensor,
-                valid, top_d, top_i, *, share: bool) -> tuple:
-    """One iteration's score + select + merge into the running top-k;
-    ``data[idx]`` ([B, V*M] int64 padded row positions) are the rows.
+class Gathered(NamedTuple):
+    """One iteration's candidates: ``pool[gather_idx]`` are the encoded
+    rows, ``row_idx`` the same slots' padded row positions (ids, norms,
+    re-rank reads). The two differ when the pool is a cache's slots."""
+    pool: torch.Tensor        # [P, cols] gather pool (rows or cache slots)
+    gather_idx: torch.Tensor  # [B, V*M] int64 into pool
+    row_idx: torch.Tensor     # [B, V*M] int64 padded row positions
+    valid: torch.Tensor       # [B, V*M] bool
 
-      solo    gather [B, V*M] rows per lane, squared L2 with the cached
-              norms, topk_merge.
-      share   pool every lane's rows; every lane scores the whole pool
-              and keeps its best 2k (the coop_score_select kernel), then
-              a merge that keeps each id once.
+
+def refine_step(ctx: ScoreCtx, pool: torch.Tensor, gather_idx: torch.Tensor,
+                row_idx: torch.Tensor, valid, top_d, top_i, *, share: bool,
+                pq: bool) -> tuple:
+    """One iteration's score + select + merge into the running top-k:
+
+      solo raw    gather [B, V*M] rows per lane, squared L2 with the
+                  cached norms, topk_merge.
+      coop raw    pool every lane's rows; every lane scores the whole pool
+                  and keeps its best 2k (the coop_score_select kernel),
+                  then a merge that keeps each id once.
+      solo pq     ADC of each lane's code rows against its table (the
+                  pq_adc_batch kernel), merge padded row positions (the
+                  exact re-rank maps them to ids).
+      coop pq     every lane ADC-scores the whole pool and keeps its best
+                  2k (the pq_adc_select kernel), dedup merge.
 
     For share=True the caller passes the coop_mask'ed validity (the
-    distinct-id precondition); masked candidates carry id -1."""
+    distinct-id precondition). Candidates are ids for raw rows and padded
+    row positions for pq; masked slots carry -1 in both."""
     k = top_d.shape[1]
-    cand = torch.where(valid, ctx.ids[idx], -1)
+    if pq:
+        cand = torch.where(valid, row_idx, -1).to(torch.int32)
+    else:
+        cand = torch.where(valid, ctx.ids[row_idx], -1)
     if share:
-        flat = idx.reshape(-1)
+        flat = gather_idx.reshape(-1)
         candf = cand.reshape(-1)
-        sel_d, sel_i = ops.coop_score_select(
-            ctx.qf, data[flat], ctx.norms[flat], candf,
-            min(2 * k, candf.shape[0]))
+        kk = min(2 * k, candf.shape[0])
+        if pq:
+            sel_d, sel_i = ops.pq_adc_select(pool[flat], ctx.luts, candf, kk)
+        else:
+            sel_d, sel_i = ops.coop_score_select(
+                ctx.qf, pool[flat], ctx.norms[row_idx.reshape(-1)], candf,
+                kk)
         return ops.dedup_merge_topk(sel_d, sel_i, top_d, top_i)
-    d = ops.sq_l2(ctx.qf, data[idx], ctx.norms[idx])
+    rows = pool[gather_idx]
+    if pq:
+        d = ops.pq_adc_batch(rows, ctx.luts)
+    else:
+        d = ops.sq_l2(ctx.qf, rows, ctx.norms[row_idx])
     return ops.topk_merge(torch.where(valid, d, INF), cand, top_d, top_i)
 
 
@@ -215,21 +263,70 @@ def leaf_lower_bounds(index, queries: torch.Tensor) -> torch.Tensor:
                            index.weights)
 
 
-# ----------------------------------------------------------- the residency
+# -------------------------------------------------------------- LeafSource
+@runtime_checkable
+class LeafSource(Protocol):
+    """Residency behind the refinement loop. ``pq`` selects the scoring
+    codec (ADC + re-rank, or L2 on raw rows); ``track_width`` is the
+    per-lane candidate pool the loop carries (k, or rerank*k for pq);
+    ``depth`` is how many visit windows ahead ``prefetch`` stages (0: no
+    prefetching); ``finalize`` maps the final pool to the reported top-k
+    and returns the bytes it read."""
+
+    pq: bool
+    depth: int
+
+    @property
+    def resident(self): ...
+
+    def query_ctx(self, queries: torch.Tensor) -> ScoreCtx: ...
+
+    def track_width(self, k: int) -> int: ...
+
+    def gather(self, leaf: torch.Tensor, ok: torch.Tensor) -> Gathered: ...
+
+    def prefetch(self, windows: list) -> None: ...
+
+    def score(self, ctx: ScoreCtx, g: Gathered, valid, top_d, top_i, *,
+              share: bool) -> tuple: ...
+
+    def finalize(self, ctx: ScoreCtx, top_d, top_i, k: int) -> tuple: ...
+
+
 class ResidentSource:
     """The leaf source of a device-resident FrozenIndex: gathering is
     device indexing into the index's rows."""
 
+    pq = False
+    depth = 0
+
     def __init__(self, index):
         self.index = index
+
+    @property
+    def resident(self):
+        return self.index
 
     def query_ctx(self, queries: torch.Tensor) -> ScoreCtx:
         return ScoreCtx(qf=queries.float(), ids=self.index.ids,
                         norms=self.index.row_norms)
 
-    def gather(self, leaf: torch.Tensor, ok: torch.Tensor) -> tuple:
-        """The padded row positions [B, V*M] of a leaf window and their
-        validity."""
-        return candidate_layout(self.index.offsets, leaf, ok,
-                                self.index.max_leaf,
-                                self.index.data.shape[0] - 1)
+    def track_width(self, k: int) -> int:
+        return k
+
+    def gather(self, leaf: torch.Tensor, ok: torch.Tensor) -> Gathered:
+        idx, valid = candidate_layout(self.index.offsets, leaf, ok,
+                                      self.index.max_leaf,
+                                      self.index.data.shape[0] - 1)
+        return Gathered(pool=self.index.data, gather_idx=idx, row_idx=idx,
+                        valid=valid)
+
+    def prefetch(self, windows: list) -> None:
+        pass
+
+    def score(self, ctx, g, valid, top_d, top_i, *, share):
+        return refine_step(ctx, g.pool, g.gather_idx, g.row_idx, valid,
+                           top_d, top_i, share=share, pq=False)
+
+    def finalize(self, ctx, top_d, top_i, k):
+        return top_d, top_i, 0

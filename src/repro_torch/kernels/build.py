@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("box_mindist", "paa", "l2_dist", "topk")
+SOURCES = ("box_mindist", "paa", "l2_dist", "topk", "pq_adc",
+           "pq_adc_select")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +42,9 @@ SIGNATURES = {
                                        _LL, _I, _I, _I, _P),
              "coop_score_select_bf16": (_P, _P, _P, _P, _P, _P, _P, _I,
                                         _LL, _I, _I, _I, _P)},
+    "pq_adc": {"pq_adc_u8": (_P, _P, _P, _I, _LL, _I, _I, _I, _P)},
+    "pq_adc_select": {"pq_adc_select_u8": (_P, _P, _P, _P, _P, _P, _I, _LL,
+                                           _I, _I, _I, _I, _P)},
 }
 
 # one loaded library per source for the process, filled under _lock

@@ -14,16 +14,12 @@
 // and one of `splits` slices of the pool, walked in tiles of 32 rows.
 // Each tile is staged in shared memory in chunks of kKC dims and read by
 // all the block's lanes; thread t of a warp scores row t of the tile for
-// the warp's lane. The 32 candidates are packed into 64-bit keys (float
-// bits of d >= 0, then the id with its sign bit flipped, so unsigned
-// order is (d, id) order), sorted across the warp by a bitonic network of
-// shuffles, and merged into the lane's running list of kp keys in shared
-// memory: min(list[i], tile[kp-1-i]) makes one bitonic sequence holding
-// the kp smallest, and a bitonic merge sorts it. A tile whose smallest key
-// is not below the list's kk-th is skipped. Each block writes its lanes'
-// kk best keys for its slice to a scratch buffer.
-// Pass 2 (coop_merge_kernel): a warp per lane merges the slices' sorted
-// lists 32 keys at a time with the same merge, and unpacks the result.
+// the warp's lane. The 32 candidates are packed into 64-bit (d, id)
+// keys, sorted across the warp and merged into the lane's running list of
+// kp keys in shared memory (merge_tile in common.cuh). Each block
+// writes its lanes' kk best keys for its slice to a scratch buffer.
+// Pass 2 (rt::select_merge_kernel): a warp per lane merges the slices'
+// sorted lists 32 keys at a time with the same merge, and unpacks them.
 // Splitting the pool gives the card enough blocks at small lane counts.
 // Limit: kk <= kMaxKP (256); the wrapper raises above it.
 // Precondition (as for the reference): real ids are distinct in the pool.
@@ -34,39 +30,8 @@ constexpr int kLanes = 8;     // query lanes per block, one warp each
 constexpr int kRows = 32;     // pooled rows per tile, one per thread
 constexpr int kKC = 128;      // dims per staged chunk
 constexpr int kMaxKP = 256;   // running-list capacity per lane
-constexpr unsigned kFull = 0xffffffffu;
-typedef unsigned long long Key;
-
-__device__ __forceinline__ Key pack(float d, int id) {
-  return ((Key)__float_as_uint(d) << 32) | (Key)((unsigned)id ^ 0x80000000u);
-}
-
-__device__ __forceinline__ Key empty_key() {
-  return pack(__int_as_float(0x7f800000), -1);  // (inf, -1)
-}
-
-__device__ __forceinline__ Key key_min(Key a, Key b) { return a < b ? a : b; }
-
-// Fold a warp's 32 keys, ascending by lane, into the ascending list
-// best[0..kp) so that best[0..kk) stay the kk smallest keys seen.
-__device__ __forceinline__ void merge_tile(Key* best, Key key, int kk, int kp,
-                                           int t) {
-  if (!(__shfl_sync(kFull, key, 0) < best[kk - 1])) return;  // warp-uniform
-  const Key rev = __shfl_sync(kFull, key, 31 - t);
-  best[kp - 32 + t] = key_min(best[kp - 32 + t], rev);
-  __syncwarp();
-  for (int stride = kp >> 1; stride > 0; stride >>= 1) {
-    for (int p = t; p < kp / 2; p += 32) {
-      const int lo = (p / stride) * (2 * stride) + (p % stride);
-      const Key x0 = best[lo], x1 = best[lo + stride];
-      if (x1 < x0) {
-        best[lo] = x1;
-        best[lo + stride] = x0;
-      }
-    }
-    __syncwarp();
-  }
-}
+using rt::Key;
+using rt::kFull;
 }  // namespace
 
 template <typename TR>
@@ -83,7 +48,7 @@ coop_score_kernel(const float* __restrict__ q, const TR* __restrict__ rows,
   const int b = blockIdx.x * kLanes + warp;
   const long long r_begin = blockIdx.y * rows_per_split;
   const long long r_end = min(R, r_begin + rows_per_split);
-  for (int i = t; i < kp; i += 32) best[warp][i] = empty_key();
+  for (int i = t; i < kp; i += 32) best[warp][i] = rt::empty_key();
 
   float qn = 0.f;
   if (b < B) {
@@ -118,53 +83,20 @@ coop_score_kernel(const float* __restrict__ q, const TR* __restrict__ rows,
     }
 
     const long long gr = r0 + t;
-    Key key = empty_key();
+    Key key = rt::empty_key();
     if (gr < r_end) {
       const int id = ids[gr];
       if (id >= 0) {
         const float d = (qn - 2.f * acc) + norms[gr];
-        key = pack(d > 0.f ? d : 0.f, id);
+        key = rt::pack(d > 0.f ? d : 0.f, id);
       }
     }
-    // bitonic sort of the warp's 32 keys, ascending by lane
-#pragma unroll
-    for (int size = 2; size <= 32; size <<= 1) {
-#pragma unroll
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        const Key other = __shfl_xor_sync(kFull, key, stride);
-        const bool take_min = ((t & stride) == 0) == ((t & size) == 0);
-        key = take_min == (other < key) ? other : key;
-      }
-    }
-    merge_tile(best[warp], key, kk, kp, t);
+    key = rt::warp_sort32(key, t);
+    rt::merge_tile(best[warp], key, kk, kp, t);
   }
   if (b < B) {
     Key* out = partial + ((long long)blockIdx.y * B + b) * kk;
     for (int j = t; j < kk; j += 32) out[j] = best[warp][j];
-  }
-}
-
-__global__ void __launch_bounds__(kLanes * 32)
-coop_merge_kernel(const Key* __restrict__ partial, float* __restrict__ out_d,
-                  int* __restrict__ out_i, int B, int splits, int kk,
-                  int kp) {
-  __shared__ Key best[kLanes][kMaxKP];
-  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
-  const int b = blockIdx.x * kLanes + warp;
-  if (b >= B) return;  // whole warps; no block-wide barrier below
-  for (int i = t; i < kp; i += 32) best[warp][i] = empty_key();
-  __syncwarp();
-  for (int s = 0; s < splits; ++s) {
-    const Key* list = partial + ((long long)s * B + b) * kk;
-    for (int c0 = 0; c0 < kk; c0 += 32) {
-      const Key key = (c0 + t < kk) ? list[c0 + t] : empty_key();
-      merge_tile(best[warp], key, kk, kp, t);
-    }
-  }
-  for (int j = t; j < kk; j += 32) {
-    const Key k = best[warp][j];
-    out_d[(long long)b * kk + j] = __uint_as_float((unsigned)(k >> 32));
-    out_i[(long long)b * kk + j] = (int)((unsigned)k ^ 0x80000000u);
   }
 }
 
@@ -176,8 +108,7 @@ static int launch(const void* q, const void* rows, const void* norms,
   if (B == 0) return 0;
   if (kk < 1 || kk > kMaxKP || kk > R || splits < 1)
     return (int)cudaErrorInvalidValue;
-  int kp = 32;
-  while (kp < kk) kp <<= 1;
+  const int kp = rt::list_capacity(kk);
   long long per = (R + splits - 1) / splits;
   per = (per + kRows - 1) / kRows * kRows;
   const unsigned lane_blocks = (unsigned)((B + kLanes - 1) / kLanes);
@@ -189,10 +120,9 @@ static int launch(const void* q, const void* rows, const void* norms,
       static_cast<Key*>(partial), B, R, n, kk, kp, per);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  coop_merge_kernel<<<lane_blocks, kLanes * 32, 0, st>>>(
+  return (int)rt::launch_select_merge<kLanes, false>(
       static_cast<const Key*>(partial), static_cast<float*>(out_d),
-      static_cast<int*>(out_i), B, splits, kk, kp);
-  return (int)cudaGetLastError();
+      static_cast<int*>(out_i), B, splits, kk, kp, st);
 }
 
 extern "C" int coop_score_select_f32(const void* q, const void* rows,

@@ -1,10 +1,10 @@
-"""The operations the search core calls: the four kernels and the plain
+"""The operations the search core calls: the six kernels and the plain
 selection and merge ops around them.
 
 Counterpart of ``src/repro/kernels/ops.py``. The kernel wrappers
-(``paa``, ``box_mindist``, ``l2``, ``coop_score_select``) launch their
-CUDA kernel for a CUDA tensor and take the plain version for a CPU
-tensor. Everything else here is plain PyTorch on whatever device its
+(``paa``, ``box_mindist``, ``l2``, ``coop_score_select``,
+``pq_adc_batch`` and ``pq_adc_select``) launch their CUDA kernel for a
+CUDA tensor and take the plain version for a CPU tensor. Everything else here is plain PyTorch on whatever device its
 inputs are on.
 
 Tie order is part of the contract: the reference's ``lax.top_k`` puts
@@ -22,12 +22,15 @@ from . import ref
 from .box_mindist import box_mindist
 from .l2_dist import l2
 from .paa import paa
+from .pq_adc import pq_adc_batch
+from .pq_adc_select import pq_adc_select
 from .topk import coop_score_select
 
 __all__ = [
-    "box_mindist", "l2", "paa", "coop_score_select", "smallest_k",
-    "row_sq_norms", "sq_l2", "l2_topk", "bitonic_merge_sorted",
-    "topk_merge", "dedup_merge_topk", "topk_merge_unique",
+    "box_mindist", "l2", "paa", "coop_score_select", "pq_adc",
+    "pq_adc_batch", "pq_adc_select", "smallest_k", "row_sq_norms",
+    "sq_l2", "l2_topk", "bitonic_merge_sorted", "topk_merge",
+    "dedup_merge_topk", "topk_merge_unique",
 ]
 
 INF = float("inf")
@@ -56,6 +59,12 @@ def smallest_k(x: torch.Tensor, k: int) -> tuple:
     v = x.gather(1, pos)
     o = torch.sort(v, dim=1, stable=True).indices
     return v.gather(1, o), pos.gather(1, o)
+
+
+def pq_adc(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """ADC scan distances [M] of codes [M, m] under one query's table
+    lut [m, K]: the pq_adc_batch kernel with one lane."""
+    return pq_adc_batch(codes, lut[None])[0]
 
 
 def l2_topk(q: torch.Tensor, x: torch.Tensor, k: int) -> tuple:

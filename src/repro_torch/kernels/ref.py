@@ -126,3 +126,47 @@ def ref_coop_score_select(q, rows, row_norms, ids, kk: int):
     idm = ids.to(torch.int32)[None, :].expand(q.shape[0], -1)
     o = lex_order(d, idm)[:, :kk]
     return d.gather(1, o), idm.gather(1, o)
+
+
+def ref_pq_adc(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """PQ asymmetric distance scan for one query: codes [M, m] in [0, K),
+    lut [m, K] f32 -> [M], d[i] = sum_j lut[j, codes[i, j]] summed left
+    to right from zero."""
+    idx = codes.long()
+    out = torch.zeros(codes.shape[0], dtype=torch.float32,
+                      device=codes.device)
+    for j in range(codes.shape[1]):
+        out = out + lut[j].float()[idx[:, j]]
+    return out
+
+
+def ref_pq_adc_batch(codes: torch.Tensor, luts: torch.Tensor
+                     ) -> torch.Tensor:
+    """Batched ADC scan: luts [B, m, K]; codes [M, m] (one row set scored
+    against every lane) or [B, M, m] (per-lane rows) -> [B, M], each sum
+    left to right."""
+    b, m, k = luts.shape
+    idx = codes.long()
+    if idx.dim() == 2:
+        idx = idx[None].expand(b, -1, -1)
+    # flat position of lut[b, j, code] in luts.reshape(b, m * k)
+    flat = idx + torch.arange(m, device=idx.device) * k
+    g = luts.float().reshape(b, 1, m * k).expand(-1, idx.shape[1], -1)
+    g = g.gather(2, flat)
+    out = torch.zeros(g.shape[:2], dtype=torch.float32, device=g.device)
+    for j in range(m):
+        out = out + g[..., j]
+    return out
+
+
+def ref_pq_adc_select(codes: torch.Tensor, luts: torch.Tensor,
+                      ids: torch.Tensor, kk: int) -> tuple:
+    """ADC-score every pooled code row [R, m] against every lane's table
+    luts [B, m, K] (masked slots, id -1, at +inf) and return per lane the
+    ``kk`` lexicographically smallest (d, id) pairs, sorted by (d, id).
+    Precondition: real ids are distinct in the pool."""
+    d = ref_pq_adc_batch(codes, luts)
+    d = torch.where(ids[None, :] < 0, torch.full_like(d, INF), d)
+    idm = ids.to(torch.int32)[None, :].expand(luts.shape[0], -1)
+    o = lex_order(d, idm)[:, :kk]
+    return d.gather(1, o), idm.gather(1, o)

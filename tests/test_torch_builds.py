@@ -76,7 +76,7 @@ def test_r_delta_equal(walk_data, delta, n):
     key = jax.random.PRNGKey(3)
     seed = int(jax.random.randint(key, (), 0, 2**31 - 1))
     want = jhist.build_histogram(walk_data, key)
-    got = histogram.build_histogram(walk_data, seed)
+    got = histogram.build_histogram(walk_data, seed, device="cpu")
     assert float(histogram.r_delta(got, delta, n)) == float(
         jhist.r_delta(want, delta, n))
     r = np.linspace(0, float(want.edges[-1]) * 1.1, 50, dtype=np.float32)

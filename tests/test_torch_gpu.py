@@ -1,5 +1,5 @@
 """repro_torch on the card: each CUDA kernel against its plain version,
-and the entry points' default device. Needs a CUDA device (skips
+the entry points' default device, and one out-of-core search per codec. Needs a CUDA device (skips
 elsewhere) but not jax, so it runs on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -8,7 +8,9 @@ elsewhere) but not jax, so it runs on the GPU machine:
 import pytest
 import torch
 
+from repro_torch.core import guarantees as G
 from repro_torch.core import search
+from repro_torch.core.index import FrozenIndex
 from repro_torch.core.indexes import dstree, isax, vafile
 from repro_torch.data import queries, randomwalk
 from repro_torch.kernels import ops, ref
@@ -65,3 +67,54 @@ def test_entry_points_run_on_the_card_by_default(cuda, builder,
     res = search.search(index, q, 10, visit_batch=visit_batch)
     assert res.ids.is_cuda and index.data.is_cuda
     assert torch.equal(res.ids, truth.ids)
+
+
+@pytest.mark.parametrize("name", ["pq_adc_batch", "pq_adc_select"])
+def test_pq_kernels_match_plain_version_on_card(cuda, name):
+    """K5 is bit-equal to its plain version (the same left-to-right sum);
+    K6 too, ties decided by id, masked slots (inf, -1), kk up to 800."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    codes = torch.randint(0, 256, (3000, 16), generator=g, device=cuda,
+                          dtype=torch.uint8)
+    luts = torch.randint(0, 3, (9, 16, 256), generator=g,
+                         device=cuda).float()
+    before = getattr(ops, name).launches
+    if name == "pq_adc_batch":
+        for c in (codes, codes[:2700].reshape(9, 300, 16),
+                  codes[:, :8].contiguous()):
+            lt = luts[:, :c.shape[-1]]
+            assert torch.equal(ops.pq_adc_batch(c, lt),
+                               ref.ref_pq_adc_batch(c, lt))
+        assert ops.pq_adc_batch.launches == before + 3
+        return
+    ids = torch.randperm(3000, generator=g, device=cuda).to(torch.int32)
+    ids[::5] = -1
+    for kk in (1, 40, 800):
+        got = ops.pq_adc_select(codes, luts, ids, kk)
+        want = ref.ref_pq_adc_select(codes, luts, ids, kk)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="at most"):
+        ops.pq_adc_select(codes, luts, ids, 1025)
+    assert ops.pq_adc_select.launches == before + 3
+
+
+@pytest.mark.parametrize("codec", ["f32", "bf16", "pq"])
+def test_ooc_search_on_the_card(cuda, tmp_path, codec):
+    data = randomwalk.generate(seed=6, n_series=4096, series_len=128)
+    q = queries.noisy_queries(data, 16)
+    index = dstree.build(data, leaf_cap=64)
+    d = index.save(str(tmp_path / codec), codec=codec)
+    store = FrozenIndex.load(d, resident="summaries")
+    g = G.epsilon(1.0)
+    for share in (False, True):
+        out = search.search_ooc(store, q, 10, g, share_gathers=share)
+        assert out.result.ids.is_cuda and out.stats.bytes_h2d > 0
+        if codec == "pq":
+            bf = search.brute_force(q, data, 10)
+            assert bool((out.result.dists
+                         <= 2.0 * bf.dists * (1 + 1e-4) + 1e-4).all())
+        else:
+            want = search.search(FrozenIndex.load(d), q, 10, g,
+                                 share_gathers=share)
+            assert torch.equal(out.result.ids, want.ids)
+            assert torch.equal(out.result.rows_scanned, want.rows_scanned)

@@ -44,5 +44,6 @@ def test_every_kernel_source_exports_its_bound_functions():
 def test_every_kernel_wrapper_counts_launches():
     from repro_torch.kernels import ops
 
-    for fn in (ops.paa, ops.box_mindist, ops.l2, ops.coop_score_select):
+    for fn in (ops.paa, ops.box_mindist, ops.l2, ops.coop_score_select,
+               ops.pq_adc_batch, ops.pq_adc_select):
         assert isinstance(fn.launches, int)
