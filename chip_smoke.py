@@ -6,12 +6,16 @@
 Phases, each of which fails the run by raising:
 
   1. environment: the card's name and power limit, torch's version;
-  2. build: the six CUDA sources under src/repro_torch/kernels/csrc,
-     one nvcc each, in parallel, into build/repro_torch/;
+  2. build: the CUDA sources under src/repro_torch/kernels/csrc, one
+     nvcc each, in parallel, into build/repro_torch/, with each kernel's
+     registers and spills from ptxas;
   3. ragged kernels: each kernel against its plain PyTorch version at
      shapes that are not tile multiples (summary space: atol = rtol =
      1e-3; squared distances: atol = 1e-2, rtol = 1e-5; a selected id
-     may differ from the plain version's only at a tie, see ties_only);
+     may differ from the plain version's only at a tie, see ties_only;
+     integer inputs, ADC distances and lex_select bit-equal), K4 and K6
+     up to kk = 1024, with negative tables, every id masked, and at
+     B = 100, R = 2^18, where the [B, R] scores no longer fit in L2;
   4. small input: the quickstart loop at N = 4096 on the card and on the
      CPU (plain versions), answers compared;
   5. main path: the paper's in-memory loop at N = 2^20 random-walk series
@@ -33,8 +37,10 @@ Phases, each of which fails the run by raising:
   7. kernels at the main path's shapes: each kernel against its plain
      version, timed with CUDA events beside the plain version, one
      PyTorch library call where one computes the same function, and the
-     least time the card could take (bound_ms). K1-K4 report their
-     launches on the in-memory path, K5 and K6 on the out-of-core path.
+     least time the card could take (bound_ms). K1-K4 and lex_select
+     report their launches on the in-memory path, K5 and K6 on the
+     out-of-core path. A line splits K4 and K6 into their score and
+     select passes.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as its last line. Exits non-zero without a result when no CUDA device
@@ -78,8 +84,10 @@ KERNEL_ROWS = {
                           "src/repro/kernels/topk.py:54"),
     "pq_adc_batch": ("src/repro_torch/kernels/csrc/pq_adc.cu",
                      "src/repro/kernels/pq_adc.py:23"),
-    "pq_adc_select": ("src/repro_torch/kernels/csrc/pq_adc_select.cu",
+    "pq_adc_select": ("src/repro_torch/kernels/csrc/pq_adc.cu",
                       "src/repro/kernels/pq_adc_select.py:40"),
+    "lex_select": ("src/repro_torch/kernels/csrc/lex_select.cu",
+                   "src/repro/kernels/topk.py:32"),
 }
 
 
@@ -211,14 +219,17 @@ def phase_ragged(torch, ops, ref) -> None:
         q, x = rn(b, n), rn(m, n, dtype=dt)
         dist_close(torch, ops.l2(q, x), ref.ref_l2(q, x),
                    f"l2 {b}x{m}x{n} {dt}")
-    for b, r, n, kk, dt, integer in [
-            (5, 96, 32, 7, torch.float32, False),
-            (9, 1000, 256, 200, torch.float32, False),
-            (100, 2560, 256, 256, torch.float32, False),
-            (3, 300, 64, 40, torch.bfloat16, False),
-            (6, 500, 16, 64, torch.float32, True),
-            (20, 4100, 16, 64, torch.float32, True)]:
-        if integer:  # small integers: exact arithmetic, ties decided by id
+    for b, r, n, kk, dt, kind in [
+            (5, 96, 32, 7, torch.float32, ""),
+            (9, 1000, 256, 200, torch.float32, ""),
+            (100, 2560, 256, 256, torch.float32, ""),
+            (3, 300, 64, 40, torch.bfloat16, ""),
+            (6, 500, 16, 64, torch.float32, "integer"),
+            (20, 4100, 16, 64, torch.float32, "integer"),
+            (30, 5000, 16, 1024, torch.float32, "integer"),
+            (100, 1 << 18, 256, 200, torch.float32, ""),
+            (100, 1 << 18, 256, 200, torch.float32, "masked")]:
+        if kind == "integer":  # exact arithmetic, ties decided by id
             q = torch.randint(-2, 3, (b, n), generator=g, device="cuda")
             rows = torch.randint(-2, 3, (r, n), generator=g, device="cuda")
             q, rows = q.float(), rows.float()
@@ -227,15 +238,18 @@ def phase_ragged(torch, ops, ref) -> None:
         norms = ops.row_sq_norms(rows)
         ids = torch.randperm(r, generator=g, device="cuda").to(torch.int32)
         ids[::7] = -1
+        if kind == "masked":  # every slot comes back as (inf, -1)
+            ids[:] = -1
         got = ops.coop_score_select(q, rows, norms, ids, kk)
         want = ref.ref_coop_score_select(q, rows, norms, ids, kk)
-        what = f"coop_score_select {b}x{r}x{n} kk={kk} {dt}"
-        if integer:
+        what = f"coop_score_select {b}x{r}x{n} kk={kk} {dt} {kind}"
+        if kind:
             if not (torch.equal(got[0], want[0])
                     and torch.equal(got[1], want[1])):
-                raise AssertionError(f"{what}: integer inputs not exact")
+                raise AssertionError(f"{what}: not exact")
         else:
             select_close(torch, got, want, q, rows, ids, what)
+        del q, rows, norms, ids, got, want
     for b, r, m, per_lane in [(1, 1, 16, False), (3, 1001, 16, False),
                               (7, 333, 16, True), (2, 4097, 8, False),
                               (5, 65, 5, True), (100, 256, 16, True)]:
@@ -247,49 +261,56 @@ def phase_ragged(torch, ops, ref) -> None:
                            ref.ref_pq_adc_batch(codes, luts)):
             raise AssertionError(f"pq_adc_batch {shape} x {b} luts is not "
                                  "bit-exact")
-    for b, r, m, kk, integer in [(5, 96, 16, 7, False),
-                                 (9, 1000, 16, 200, True),
-                                 (100, 3000, 16, 800, False),
-                                 (13, 5000, 16, 1024, True),
-                                 (3, 400, 7, 33, False)]:
+    # K6 adds table entries left to right as its plain version does, and
+    # its selection is exact: bit-equal, negative distances included
+    for b, r, m, kk, kind in [(5, 96, 16, 7, ""),
+                              (9, 1000, 16, 200, "integer"),
+                              (100, 3000, 16, 800, "negative"),
+                              (13, 5000, 16, 1024, "integer negative"),
+                              (3, 400, 7, 33, "negative"),
+                              (100, 1 << 18, 16, 800, "negative"),
+                              (100, 1 << 18, 16, 800, "masked")]:
         luts = torch.rand(b, m, 256, generator=g, device="cuda") * 4.0
-        if integer:  # small integers: many exact ties, decided by id
+        if "negative" in kind:
+            luts = luts - 2.0
+        if "integer" in kind:  # small integers: many exact ties
             luts = luts.floor()
         codes = torch.randint(0, 256, (r, m), generator=g, device="cuda",
                               dtype=torch.uint8)
         ids = torch.randperm(r, generator=g, device="cuda").to(torch.int32)
         ids[::7] = -1
+        if kind == "masked":
+            ids[:] = -1
         got = ops.pq_adc_select(codes, luts, ids, kk)
         want = ref.ref_pq_adc_select(codes, luts, ids, kk)
-        adc_select_close(torch, ref, got, want, codes, luts, ids,
-                         f"pq_adc_select {b}x{r}x{m} kk={kk}")
+        if not (torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"pq_adc_select {b}x{r}x{m} kk={kk} {kind}: "
+                                 "not bit-exact")
+    # the selection alone: staged in shared memory up to 48K rows a lane,
+    # read from device memory above
+    for b, r, kk, kind in [(3, 50, 7, ""), (5, 3000, 1024, "integer"),
+                           (100, 25600, 800, ""), (9, 5000, 100, "negative"),
+                           (7, 1 << 18, 1024, "integer"),
+                           (6, 70000, 1000, "masked")]:
+        s = torch.rand(b, r, generator=g, device="cuda") * 512.0
+        if kind == "integer":
+            s = torch.randint(-3, 4, (b, r), generator=g, device="cuda")
+            s = s.float()
+        elif kind == "negative":
+            s = torch.randn(b, r, generator=g, device="cuda")
+            s[:, ::11] = -0.0
+        ids = torch.randperm(r, generator=g, device="cuda").to(torch.int32)
+        ids[::7] = -1
+        if kind == "masked":
+            ids[:] = -1
+        got = ops.lex_select(s, ids, kk)
+        want = ref.ref_lex_select(s, ids, kk)
+        if not (torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"lex_select {b}x{r} kk={kk} {kind}: not "
+                                 "bit-exact")
     torch.cuda.synchronize()
-
-
-def adc_select_close(torch, ref, got, want, codes, luts, ids,
-                     what: str) -> float:
-    """K6 against its plain version, by K4's rule: distances within the
-    distance tolerance, ids equal apart from swaps between ties of the
-    rows' ADC distances."""
-    err = dist_close(torch, got[0], want[0], what)
-    diff = got[1] != want[1]
-    if bool(diff.any()):
-        full = ref.ref_pq_adc_batch(codes, luts).double()
-        pos = torch.full((int(ids.max()) + 1,), 0, dtype=torch.long,
-                         device=ids.device)
-        ok = ids >= 0
-        pos[ids[ok].long()] = torch.nonzero(ok)[:, 0]
-
-        def adc(sel):
-            d = full.gather(1, pos[sel.long().clamp_min(0)])
-            return torch.where(sel >= 0, d, float("inf"))
-
-        dg, dw = adc(got[1]), adc(want[1])
-        gap = torch.where(diff, (dg - dw).abs(), torch.zeros_like(dg))
-        if bool((gap > DIST_ATOL + DIST_RTOL * dw.abs()).any()):
-            raise AssertionError(f"{what}: an id differs from the plain "
-                                 "version's where the two are no tie")
-    return err
 
 
 def quickstart(torch, S, G, idx_mods, data, q, k, leaf_cap, device,
@@ -394,10 +415,12 @@ def phase_small(torch, S, G, idx_mods, randomwalk, queries) -> None:
                   f"small {key} card vs CPU")
 
 
-def kernel_rows(torch, ops, ref, data_t, q_t, idx, vaf, k, counts, pq_in):
+def kernel_rows(torch, ops, ref, build, data_t, q_t, idx, vaf, k, counts,
+                pq_in):
     """Each kernel at the main path's shapes: its error against the plain
     version, then the kernel's, the plain version's and a library call's
-    times, and the least time the card could take."""
+    times, and the least time the card could take. Prints the split of
+    K4 and K6 into their score and select passes."""
     F = torch.nn.functional
     rows = []
 
@@ -463,6 +486,23 @@ def kernel_rows(torch, ops, ref, data_t, q_t, idx, vaf, k, counts, pq_in):
         4 * (b * n + r * n + 2 * r) + 8 * b * kk,
         2 * b * r * n + 2 * b * n + 3 * b * r)
 
+    # lex_select at K4's shape: the scores of that iteration, selected
+    q4, rows4, norms4, ids4, kk4 = a
+    s4 = ops.sq_l2(q4, rows4, norms4)
+    got, want = ops.lex_select(s4, ids4, kk4), ref.ref_lex_select(s4, ids4,
+                                                                 kk4)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("lex_select main: not bit-exact")
+    add("lex_select", 0.0, lambda: ops.lex_select(s4, ids4, kk4),
+        lambda: ref.ref_lex_select(s4, ids4, kk4),
+        4 * (b * r + r) + 8 * b * kk4, b * r, rate=PEAK_F32_INSTR)
+    score4 = build.library("topk").coop_score_f32
+    stream = build.stream(q4)
+    split = {"K4 score": cuda_ms(torch, lambda: score4(
+        q4.data_ptr(), rows4.data_ptr(), norms4.data_ptr(), s4.data_ptr(),
+        b, r, n, stream), 10)}
+    split["K4 select (kk=%d)" % kk4] = rows[-1]["ms"]
+
     # K5: one query's ADC scan over the whole pq payload; the library
     # form is two calls, a gather over the table and a sum
     codes, luts = pq_in
@@ -488,13 +528,20 @@ def kernel_rows(torch, ops, ref, data_t, q_t, idx, vaf, k, counts, pq_in):
     pool = codes[:r].contiguous()
     ids = torch.arange(r, dtype=torch.int32, device="cuda")
     a = (pool, luts, ids, kk)
-    add("pq_adc_select",
-        adc_select_close(torch, ref, ops.pq_adc_select(*a),
-                         ref.ref_pq_adc_select(*a), pool, luts, ids,
-                         "pq_adc_select main"),
+    got, want = ops.pq_adc_select(*a), ref.ref_pq_adc_select(*a)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("pq_adc_select main: not bit-exact")
+    add("pq_adc_select", 0.0,
         lambda: ops.pq_adc_select(*a), lambda: ref.ref_pq_adc_select(*a),
         r * m + 4 * b * m * kq + 4 * r + 8 * b * kk, b * r * m,
         rate=PEAK_F32_INSTR)
+    s6 = ops.pq_adc_batch(pool, luts)
+    split["K6 score"] = cuda_ms(torch, lambda: ops.pq_adc_batch(pool, luts),
+                                10)
+    split["K6 select (kk=%d)" % kk] = cuda_ms(
+        torch, lambda: ops.lex_select(s6, ids, kk), 10)
+    print("score/select split (ms): " + ", ".join(
+        f"{name} {ms:.4f}" for name, ms in split.items()))
     return rows
 
 
@@ -630,9 +677,13 @@ def main() -> int:
     print(f"build: {len(logs)} kernels in {time.perf_counter() - t0:.1f} s "
           f"into {build.BUILD_DIR}")
     for name, log in logs.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {name} {entry}: {line.split(':', 1)[-1]}"
+                      .rstrip())
 
     t0 = time.perf_counter()
     phase_ragged(torch, ops, ref)
@@ -652,6 +703,7 @@ def main() -> int:
 
     wrappers = {"box_mindist": ops.box_mindist, "paa": ops.paa,
                 "l2": ops.l2, "coop_score_select": ops.coop_score_select,
+                "lex_select": ops.lex_select,
                 "pq_adc_batch": ops.pq_adc_batch,
                 "pq_adc_select": ops.pq_adc_select}
     for fn in wrappers.values():
@@ -711,7 +763,7 @@ def main() -> int:
     counts.update({name: ooc_counts[name]
                    for name in ("pq_adc_batch", "pq_adc_select")})
 
-    rows = kernel_rows(torch, ops, ref, data_t, q_t, built["isax2+"],
+    rows = kernel_rows(torch, ops, ref, build, data_t, q_t, built["isax2+"],
                        built["va+file"], k, counts, pq_in)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

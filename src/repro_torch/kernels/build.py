@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by one ``nvcc`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds), named after a hash of its source and flags, under
-``<repo>/build/repro_torch/``. Building happens at first use, or for
+seconds), named after a hash of its source, the headers and the flags,
+under ``<repo>/build/repro_torch/``. Building happens at first use, or for
 every source at once through :func:`build_all`. Nothing here runs when
 the package is imported.
 """
@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("box_mindist", "paa", "l2_dist", "topk", "pq_adc",
-           "pq_adc_select")
+           "lex_select")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,13 +38,10 @@ SIGNATURES = {
     "paa": {"paa_f32": (_P, _P, _LL, _I, _I, _F, _P)},
     "l2_dist": {"l2_f32": (_P, _P, _P, _I, _LL, _I, _P),
                 "l2_bf16": (_P, _P, _P, _I, _LL, _I, _P)},
-    "topk": {"coop_score_select_f32": (_P, _P, _P, _P, _P, _P, _P, _I,
-                                       _LL, _I, _I, _I, _P),
-             "coop_score_select_bf16": (_P, _P, _P, _P, _P, _P, _P, _I,
-                                        _LL, _I, _I, _I, _P)},
+    "topk": {"coop_score_f32": (_P, _P, _P, _P, _I, _LL, _I, _P),
+             "coop_score_bf16": (_P, _P, _P, _P, _I, _LL, _I, _P)},
     "pq_adc": {"pq_adc_u8": (_P, _P, _P, _I, _LL, _I, _I, _I, _P)},
-    "pq_adc_select": {"pq_adc_select_u8": (_P, _P, _P, _P, _P, _P, _I, _LL,
-                                           _I, _I, _I, _I, _P)},
+    "lex_select": {"lex_select_f32": (_P, _P, _P, _P, _I, _LL, _I, _P)},
 }
 
 # one loaded library per source for the process, filled under _lock
@@ -66,8 +63,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    common = (CSRC / "common.cuh").read_bytes()
-    h = hashlib.sha256(src + common + " ".join(FLAGS).encode())
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src + headers + " ".join(FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

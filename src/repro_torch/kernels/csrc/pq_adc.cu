@@ -13,27 +13,32 @@
 // codes in one vector load (16 B at m = 16, 8 B at m = 8) and summing
 // m table entries from shared memory. Bound on the H100: bytes (the codes
 // are read once, one f32 is written per row; the table reads hit shared
-// memory).
+// memory). A block scores at least kRowsPerBlock rows, and more when the
+// grid would exceed kTargetBlocks, so that a shared row set scored
+// against many lanes (K6's score pass: 100 lanes x 25,600 rows) stages
+// each table a few hundred times per call, not thousands.
 #include "common.cuh"
 
 namespace {
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = 1024;
+constexpr long long kTargetBlocks = 512;
 
 // width: 16 or 8 = m with a vector load of the row, 0 = any m, byte loads
 template <int width>
 __global__ void __launch_bounds__(kThreads)
 pq_adc_kernel(const uint8_t* __restrict__ codes,
               const float* __restrict__ luts, float* __restrict__ out,
-              long long M, int m, int K, long long lane_stride) {
+              long long M, int m, int K, long long lane_stride,
+              long long rows_per_block) {
   extern __shared__ float lut[];
   const int b = blockIdx.y;
   const float* src = luts + (long long)b * m * K;
   for (int i = threadIdx.x; i < m * K; i += kThreads) lut[i] = src[i];
   __syncthreads();
   const uint8_t* lane = codes + (long long)b * lane_stride;
-  const long long r0 = (long long)blockIdx.x * kRowsPerBlock;
-  const long long r1 = min(M, r0 + kRowsPerBlock);
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  const long long r1 = min(M, r0 + rows_per_block);
   for (long long r = r0 + threadIdx.x; r < r1; r += kThreads) {
     const uint8_t* row = lane + r * m;
     float acc = 0.f;
@@ -67,10 +72,12 @@ cudaError_t launch(const uint8_t* codes, const float* luts, float* out,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((unsigned)((M + kRowsPerBlock - 1) / kRowsPerBlock),
-                  (unsigned)B);
+  long long per = (M * B + kTargetBlocks - 1) / kTargetBlocks;
+  per = max((long long)kRowsPerBlock,
+            (per + kThreads - 1) / kThreads * kThreads);
+  const dim3 grid((unsigned)((M + per - 1) / per), (unsigned)B);
   pq_adc_kernel<width><<<grid, kThreads, smem, st>>>(codes, luts, out, M, m,
-                                                      K, lane_stride);
+                                                      K, lane_stride, per);
   return cudaGetLastError();
 }
 }  // namespace

@@ -1,10 +1,11 @@
-"""The operations the search core calls: the six kernels and the plain
+"""The operations the search core calls: the kernels and the plain
 selection and merge ops around them.
 
 Counterpart of ``src/repro/kernels/ops.py``. The kernel wrappers
 (``paa``, ``box_mindist``, ``l2``, ``coop_score_select``,
-``pq_adc_batch`` and ``pq_adc_select``) launch their CUDA kernel for a
-CUDA tensor and take the plain version for a CPU tensor. Everything else here is plain PyTorch on whatever device its
+``pq_adc_batch``, ``pq_adc_select`` and ``lex_select``) launch their
+CUDA kernels for a CUDA tensor and take the plain version for a CPU
+tensor. Everything else here is plain PyTorch on whatever device its
 inputs are on.
 
 Tie order is part of the contract: the reference's ``lax.top_k`` puts
@@ -21,14 +22,15 @@ import torch
 from . import ref
 from .box_mindist import box_mindist
 from .l2_dist import l2
+from .lex_select import lex_select
 from .paa import paa
 from .pq_adc import pq_adc_batch
 from .pq_adc_select import pq_adc_select
 from .topk import coop_score_select
 
 __all__ = [
-    "box_mindist", "l2", "paa", "coop_score_select", "pq_adc",
-    "pq_adc_batch", "pq_adc_select", "smallest_k", "row_sq_norms",
+    "box_mindist", "l2", "paa", "coop_score_select", "lex_select",
+    "pq_adc", "pq_adc_batch", "pq_adc_select", "smallest_k", "row_sq_norms",
     "sq_l2", "l2_topk", "bitonic_merge_sorted", "topk_merge",
     "dedup_merge_topk", "topk_merge_unique",
 ]

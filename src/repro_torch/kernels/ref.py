@@ -111,21 +111,30 @@ def ref_topk_merge_unique(dists, ids, top_d, top_i):
     return sd.gather(1, o2), si.gather(1, o2)
 
 
+def ref_lex_select(d: torch.Tensor, ids: torch.Tensor, kk: int) -> tuple:
+    """Per lane of the scores d [B, R] against the shared ids [R], the
+    ``kk`` lexicographically smallest (d, id) pairs, sorted by (d, id):
+    d [B, kk] f32, ids [B, kk] int32. A slot with a negative id counts
+    as (inf, id), so the -1 slots come out as (inf, -1). Precondition:
+    real ids are distinct; only the -1 placeholder repeats."""
+    d = torch.where(ids[None, :] < 0, torch.full_like(d, INF), d)
+    idm = ids.to(torch.int32)[None, :].expand(d.shape[0], -1)
+    o = lex_order(d, idm)[:, :kk]
+    return d.gather(1, o), idm.gather(1, o)
+
+
 def ref_coop_score_select(q, rows, row_norms, ids, kk: int):
     """Score every pooled row against every lane (|q|^2 - 2 q.x + |x|^2
-    with the norms passed in, masked slots (id -1) at +inf) and return
-    per lane the ``kk`` lexicographically smallest (d, id) pairs,
-    sorted by (d, id). Precondition: real ids are distinct in the
-    pool; only the -1 placeholder repeats."""
+    with the norms passed in, clamped at 0) and return per lane the
+    ``kk`` lexicographically smallest (d, id) pairs, masked slots (id -1)
+    at +inf, sorted by (d, id) (:func:`ref_lex_select`). Precondition:
+    real ids are distinct in the pool; only the -1 placeholder repeats."""
     qf = q.float()
     rf = rows.float()
     qn = (qf * qf).sum(-1)[:, None]
     d = torch.clamp_min(qn - 2.0 * (qf @ rf.T)
                         + row_norms.float()[None, :], 0.0)
-    d = torch.where(ids[None, :] < 0, torch.full_like(d, INF), d)
-    idm = ids.to(torch.int32)[None, :].expand(q.shape[0], -1)
-    o = lex_order(d, idm)[:, :kk]
-    return d.gather(1, o), idm.gather(1, o)
+    return ref_lex_select(d, ids, kk)
 
 
 def ref_pq_adc(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
@@ -165,8 +174,4 @@ def ref_pq_adc_select(codes: torch.Tensor, luts: torch.Tensor,
     luts [B, m, K] (masked slots, id -1, at +inf) and return per lane the
     ``kk`` lexicographically smallest (d, id) pairs, sorted by (d, id).
     Precondition: real ids are distinct in the pool."""
-    d = ref_pq_adc_batch(codes, luts)
-    d = torch.where(ids[None, :] < 0, torch.full_like(d, INF), d)
-    idm = ids.to(torch.int32)[None, :].expand(luts.shape[0], -1)
-    o = lex_order(d, idm)[:, :kk]
-    return d.gather(1, o), idm.gather(1, o)
+    return ref_lex_select(ref_pq_adc_batch(codes, luts), ids, kk)

@@ -1,15 +1,13 @@
-"""K4 ``coop_score_select``: fused cooperative score + select.
+"""K4 ``coop_score_select``: cooperative score, then exact select.
 
 Replaces ``src/repro/kernels/topk.py`` (``coop_score_select_pallas`` /
-``_coop_topk_kernel`` with ``lex_min_select``) with ``csrc/topk.cu``.
-On the card the call is bound by f32 operations (every lane scores every
-pooled row). A block owns eight lanes, one warp each, and a slice of the
-pool, walked in tiles of 32 rows staged in shared memory for all of
-them; each warp sorts its tile's 64-bit (d, id) keys with shuffles and
-merges them into its running list in shared memory with a bitonic merge,
-so the [B, R] distances never reach device memory. A second pass merges
-the slices' lists per lane. The pool is cut into enough slices to give
-every SM two blocks.
+``_coop_topk_kernel`` with ``lex_min_select``) with two kernels. The
+score pass (``csrc/topk.cu``) is K3's register-tiled f32 GEMM
+(``csrc/gemm_tile.cuh``) with the cached row norms passed in: it writes
+every lane's distances to every pooled row into a scratch matrix
+[B, R], bound by f32 operations. :func:`lex_select.lex_select` then
+keeps each lane's kk smallest (d, id) pairs; at the main path's
+B = 100, R = 25,600 the matrix is 10 MB and stays in L2 between the two.
 """
 
 from __future__ import annotations
@@ -17,13 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
-
-# the running list of a lane holds at most this many (d, id) keys
-MAX_KK = 256
-# lanes per block (kLanes in csrc/topk.cu) and the smallest pool slice,
-# which together set how many slices the pool is cut into
-LANES_PER_BLOCK = 8
-MIN_ROWS_PER_SLICE = 1024
+from .lex_select import MAX_KK, lex_select
 
 
 def coop_score_select(q: torch.Tensor, rows: torch.Tensor,
@@ -33,7 +25,7 @@ def coop_score_select(q: torch.Tensor, rows: torch.Tensor,
     pooled rows, sorted: d [B, kk] f32, ids [B, kk] int32. Masked slots
     carry id -1 and score (inf, -1). Precondition: real ids are distinct
     in the pool. A CPU tensor takes the plain version; CUDA tensors
-    launch the kernel, which holds kk <= MAX_KK."""
+    launch the kernels, which hold kk <= MAX_KK."""
     if kk > rows.shape[0]:
         raise ValueError(f"kk={kk} exceeds the pool of {rows.shape[0]} rows")
     if q.device.type == "cpu":
@@ -55,24 +47,16 @@ def coop_score_select(q: torch.Tensor, rows: torch.Tensor,
         raise ValueError(f"coop_score_select shapes disagree: q {q.shape}, "
                          f"rows {rows.shape}, norms {row_norms.shape}, "
                          f"ids {ids.shape}")
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    lane_blocks = -(-b // LANES_PER_BLOCK)
-    splits = max(1, min(-(-2 * sms // lane_blocks),
-                        -(-r // MIN_ROWS_PER_SLICE)))
-    partial = torch.empty((splits, b, kk), dtype=torch.int64,
-                          device=q.device)
-    out_d = torch.empty((b, kk), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((b, kk), dtype=torch.int32, device=q.device)
+    scores = torch.empty((b, r), dtype=torch.float32, device=q.device)
     lib = build.library("topk")
-    fn = lib.coop_score_select_f32 if rows.dtype == torch.float32 \
-        else lib.coop_score_select_bf16
+    fn = lib.coop_score_f32 if rows.dtype == torch.float32 \
+        else lib.coop_score_bf16
     with torch.cuda.device(q.device):
         build.check(fn(qf.data_ptr(), rows.data_ptr(), row_norms.data_ptr(),
-                       ids.data_ptr(), partial.data_ptr(), out_d.data_ptr(),
-                       out_i.data_ptr(), b, r, n, kk, splits,
-                       build.stream(q)), "coop_score_select")
+                       scores.data_ptr(), b, r, n, build.stream(q)),
+                    "coop_score_select")
     coop_score_select.launches += 1
-    return out_d, out_i
+    return lex_select(scores, ids, kk)
 
 
 coop_score_select.launches = 0

@@ -5,9 +5,11 @@ elsewhere) but not jax, so it runs on the GPU machine:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+from _lex_cases import LEX_CASES, lex_case
 from repro_torch.core import guarantees as G
 from repro_torch.core import search
 from repro_torch.core.index import FrozenIndex
@@ -96,6 +98,51 @@ def test_pq_kernels_match_plain_version_on_card(cuda, name):
     with pytest.raises(ValueError, match="at most"):
         ops.pq_adc_select(codes, luts, ids, 1025)
     assert ops.pq_adc_select.launches == before + 3
+
+
+@pytest.mark.parametrize("case", LEX_CASES)
+def test_lex_select_matches_plain_version_on_card(cuda, case):
+    """The radix select is exact: bit-equal to the plain version, ties
+    decided by id, masked slots (inf, -1), -0 beside +0."""
+    d, ids, kk = lex_case(case)
+    d, ids = torch.as_tensor(d, device=cuda), torch.as_tensor(ids,
+                                                              device=cuda)
+    before = ops.lex_select.launches
+    got, want = ops.lex_select(d, ids, kk), ref.ref_lex_select(d, ids, kk)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert ops.lex_select.launches == before + 1
+
+
+@pytest.mark.parametrize("kk", [256, 1024])
+def test_coop_score_select_large_kk_on_card(cuda, kk):
+    """K4 above its former limit of 256, on small integers (exact
+    distances, so bit-equal to the plain version, ties decided by id)."""
+    rng = np.random.default_rng(kk)
+    q = torch.as_tensor(rng.integers(-2, 3, (20, 16)).astype(np.float32),
+                        device=cuda)
+    rows = torch.as_tensor(rng.integers(-2, 3, (3000, 16)).astype(
+        np.float32), device=cuda)
+    ids = torch.as_tensor(rng.permutation(3000).astype(np.int32),
+                          device=cuda)
+    ids[::7] = -1
+    args = (q, rows, ops.row_sq_norms(rows), ids, kk)
+    got, want = ops.coop_score_select(*args), ref.ref_coop_score_select(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_pq_adc_select_negative_tables_on_card(cuda):
+    rng = np.random.default_rng(11)
+    luts = torch.as_tensor(rng.random((9, 16, 256), dtype=np.float32) * 4
+                           - 2, device=cuda)
+    codes = torch.as_tensor(rng.integers(0, 256, (3000, 16)).astype(
+        np.uint8), device=cuda)
+    ids = torch.as_tensor(rng.permutation(3000).astype(np.int32),
+                          device=cuda)
+    ids[::5] = -1
+    got = ops.pq_adc_select(codes, luts, ids, 800)
+    want = ref.ref_pq_adc_select(codes, luts, ids, 800)
+    assert float(want[0].min()) < 0
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("codec", ["f32", "bf16", "pq"])
