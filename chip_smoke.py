@@ -13,11 +13,17 @@ Phases, each of which fails the run by raising:
      shapes that are not tile multiples (summary space: atol = rtol =
      1e-3; squared distances: atol = 1e-2, rtol = 1e-5; a selected id
      may differ from the plain version's only at a tie, see ties_only;
-     integer inputs, ADC distances and lex_select bit-equal), K4 and K6
-     up to kk = 1024, with negative tables, every id masked, and at
-     B = 100, R = 2^18, where the [B, R] scores no longer fit in L2;
+     integer inputs, ADC distances, lex_select and boxes wider than 32
+     dims bit-equal), K4 up to kk = 2000, K6 up to 1200 and lex_select
+     up to 30000 (past its sort in shared memory), with negative tables,
+     every id masked, and at B = 100, R = 2^18, where the [B, R] scores
+     no longer fit in L2; K1 at D = 33 to 100, K3 at the baselines'
+     shapes;
   4. small input: the quickstart loop at N = 4096 on the card and on the
-     CPU (plain versions), answers compared;
+     CPU (plain versions), answers compared; then share_gathers at
+     k = 600, an iSAX2+ of 48 segments, and the four vector baselines
+     (each queried on one index built on the card, on the card and on
+     the CPU; HNSW's adjacency built on both);
   5. main path: the paper's in-memory loop at N = 2^20 random-walk series
      of length 256 (1 GiB of f32 on the card), 100 noisy queries,
      k = 100, leaf_cap = 256: iSAX2+, DSTree and VA+file builds, brute
@@ -34,13 +40,26 @@ Phases, each of which fails the run by raising:
      the epsilon bound against brute force after the exact re-rank.
      Launch counts are zeroed before and read after this phase too, and
      the two PQ kernels must have run in it;
-  7. kernels at the main path's shapes: each kernel against its plain
+  7. vector baselines: HNSW, IMI, SRS and QALSH built on the main path's
+     data and asked its queries with the settings of the paper's
+     in-memory figure (benchmarks/bench_query_memory.py), scored against
+     brute force; recall must grow with efs and nprobe, IMI's re-rank
+     must not lower MAP or raise MRE, SRS must scan no more at delta 0.5
+     than at 0.99. Launch counts are zeroed before and read after; K3,
+     K5 and lex_select must have run. Each kernel's inputs on this path
+     (the first call at each shape, in each build and each method's
+     queries) are recorded and, after it, held against the plain
+     version: K3 within the distance tolerance, K5 and lex_select
+     bit-equal;
+  8. kernels at the main path's shapes: each kernel against its plain
      version, timed with CUDA events beside the plain version, one
      PyTorch library call where one computes the same function, and the
-     least time the card could take (bound_ms). K1-K4 and lex_select
-     report their launches on the in-memory path, K5 and K6 on the
-     out-of-core path. A line splits K4 and K6 into their score and
-     select passes.
+     least time the card could take (bound_ms). ``launches`` counts the
+     in-memory path for K1-K4 and lex_select, the out-of-core path for K5
+     and K6; ``launches_by_path`` gives all three paths. A line splits K4
+     and K6 into their score and select passes, and K3 and lex_select at
+     the HNSW build's block, lex_select at kk = 1200 and 4096 and K1 at
+     D = 64 are timed too.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as its last line. Exits non-zero without a result when no CUDA device
@@ -143,21 +162,40 @@ def dist_close(torch, got, want, what: str) -> float:
     return close(torch, got, want, what, DIST_ATOL, DIST_RTOL)
 
 
-def ties_only(torch, got_ids, want_ids, dist64, what: str) -> int:
-    """Rows of ids [B, k] (-1 = none) against the reference's: each row
-    holds distinct ids, and where an id differs from the reference's at
-    the same rank, the two are a tie, their true squared distances
-    (``dist64(ids)``, float64, inf for -1) within the distance tolerance.
-    Returns the number of such swaps."""
-    s, _ = torch.sort(got_ids.long(), dim=1)
-    if bool(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any()):
-        raise AssertionError(f"{what}: an id is returned twice")
+def ties_only(torch, got_ids, want_ids, dist, what: str,
+              distinct: bool = True) -> int:
+    """Rows of ids [B, k] (-1 = none) against the reference's: where an id
+    differs from the reference's at the same rank, the two are a tie.
+    ``dist`` is a function of ids giving their true squared distances
+    (float64, inf for -1), and the two ids' distances must lie within the
+    distance tolerance; or it is the reference's sorted squared distances
+    [B, k] (for distances that are not true distances, IMI's ADC), and
+    the reference's distance at that rank must tie with a neighbouring
+    rank's. Each row holds distinct ids unless ``distinct`` is false
+    (QALSH merges a point again each step it is refined). Returns the
+    number of such swaps."""
+    got_ids = got_ids.to(want_ids.device)
+    if distinct:
+        s, _ = torch.sort(got_ids.long(), dim=1)
+        if bool(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any()):
+            raise AssertionError(f"{what}: an id is returned twice")
     diff = got_ids != want_ids
     if not bool(diff.any()):
         return 0
-    dg, dw = dist64(got_ids), dist64(want_ids)
-    gap = torch.where(diff, (dg - dw).abs(), torch.zeros_like(dg))
-    if bool((gap > DIST_ATOL + DIST_RTOL * dw.abs()).any()):
+    if callable(dist):
+        dg, dw = dist(got_ids), dist(want_ids)
+        gap = torch.where(diff, (dg - dw).abs(), torch.zeros_like(dg))
+        bad = gap > DIST_ATOL + DIST_RTOL * dw.abs()
+    else:
+        wd = dist.to(want_ids.device).double()
+        near = (wd[:, 1:] == wd[:, :-1]) | ((wd[:, 1:] - wd[:, :-1]).abs()
+                                            <= DIST_ATOL + DIST_RTOL
+                                            * wd[:, 1:])
+        tie = torch.zeros_like(wd, dtype=torch.bool)
+        tie[:, 1:] |= near
+        tie[:, :-1] |= near
+        bad = diff & ~tie
+    if bool(bad.any()):
         raise AssertionError(f"{what}: an id differs from the reference's "
                              "where the two are no tie")
     return int(diff.sum())
@@ -202,20 +240,29 @@ def phase_ragged(torch, ops, ref) -> None:
         close(torch, got, want, f"paa {n_rows}x{n}/{l}")
         if not torch.equal(got, want):
             raise AssertionError(f"paa {n_rows}x{n}/{l} is not bit-exact")
+    # wider than 32 dims: chunks of 32, bit-equal to the plain version
     for b, L, d in [(1, 3, 16), (5, 1000, 32), (130, 700, 8),
-                    (100, 4097, 16)]:
+                    (100, 4097, 16), (100, 4097, 33), (7, 1000, 48),
+                    (130, 700, 64), (5, 3001, 100)]:
         q, lo = rn(b, d), rn(L, d) - 1.0
         hi = lo + rn(L, d).abs()
         w = rn(d).abs() + 0.5
         got, want = ops.box_mindist(q, lo, hi, w), \
             ref.ref_box_mindist(q, lo, hi, w)
         close(torch, got, want, f"box_mindist {b}x{L}x{d}")
+        if d > 32 and not torch.equal(got, want):
+            raise AssertionError(f"box_mindist {b}x{L}x{d} is not bit-exact")
     for b, m, n, dt in [(1, 1, 32, torch.float32),
                         (4, 100, 256, torch.float32),
                         (130, 257, 100, torch.float32),
                         (8, 64, 1000, torch.float32),
                         (7, 300, 256, torch.bfloat16),
-                        (5, 33, 24, torch.bfloat16)]:
+                        (5, 33, 24, torch.bfloat16),
+                        # IMI's coarse quantizer, a k-means subspace
+                        # (PQ codebook of 256), an HNSW build block
+                        (100, 16, 128, torch.float32),
+                        (4096, 256, 16, torch.float32),
+                        (513, 5000, 256, torch.float32)]:
         q, x = rn(b, n), rn(m, n, dtype=dt)
         dist_close(torch, ops.l2(q, x), ref.ref_l2(q, x),
                    f"l2 {b}x{m}x{n} {dt}")
@@ -227,6 +274,7 @@ def phase_ragged(torch, ops, ref) -> None:
             (6, 500, 16, 64, torch.float32, "integer"),
             (20, 4100, 16, 64, torch.float32, "integer"),
             (30, 5000, 16, 1024, torch.float32, "integer"),
+            (10, 5000, 16, 2000, torch.float32, "integer"),
             (100, 1 << 18, 256, 200, torch.float32, ""),
             (100, 1 << 18, 256, 200, torch.float32, "masked")]:
         if kind == "integer":  # exact arithmetic, ties decided by id
@@ -267,6 +315,7 @@ def phase_ragged(torch, ops, ref) -> None:
                               (9, 1000, 16, 200, "integer"),
                               (100, 3000, 16, 800, "negative"),
                               (13, 5000, 16, 1024, "integer negative"),
+                              (50, 5000, 16, 1200, "negative"),
                               (3, 400, 7, 33, "negative"),
                               (100, 1 << 18, 16, 800, "negative"),
                               (100, 1 << 18, 16, 800, "masked")]:
@@ -288,11 +337,18 @@ def phase_ragged(torch, ops, ref) -> None:
             raise AssertionError(f"pq_adc_select {b}x{r}x{m} kk={kk} {kind}: "
                                  "not bit-exact")
     # the selection alone: staged in shared memory up to 48K rows a lane,
-    # read from device memory above
+    # read from device memory above; kk > 1024 sorted as runs of 8192 in
+    # shared memory merged through device memory (20000: three runs)
     for b, r, kk, kind in [(3, 50, 7, ""), (5, 3000, 1024, "integer"),
                            (100, 25600, 800, ""), (9, 5000, 100, "negative"),
                            (7, 1 << 18, 1024, "integer"),
-                           (6, 70000, 1000, "masked")]:
+                           (6, 70000, 1000, "masked"),
+                           (5, 3000, 1025, "integer"),
+                           (100, 25600, 1200, ""),
+                           (9, 9000, 4096, "negative"),
+                           (4, 40000, 20000, "integer"),
+                           (3, 70000, 20000, ""),
+                           (2, 30000, 30000, "masked")]:
         s = torch.rand(b, r, generator=g, device="cuda") * 512.0
         if kind == "integer":
             s = torch.randint(-3, 4, (b, r), generator=g, device="cuda")
@@ -413,6 +469,280 @@ def phase_small(torch, S, G, idx_mods, randomwalk, queries) -> None:
                    f"small {key} squared dists")
         ties_only(torch, rg.ids, rc.ids.cuda(), dist64,
                   f"small {key} card vs CPU")
+
+
+def phase_small_wide(torch, S, G, isax, baselines, randomwalk, queries
+                     ) -> None:
+    """The repaired limits and the vector baselines at N = 4096, card
+    against CPU: share_gathers at k = 600 (a selection of kk = 1200), an
+    iSAX2+ of 48 segments (boxes of 48 dims), and each baseline's query
+    on one index, built on the card and copied to the CPU."""
+    from repro_torch.device import to_device
+
+    graph, imi, qalsh, srs = baselines
+    data = randomwalk.generate(seed=3, n_series=4096, series_len=256)
+    q = queries.noisy_queries(data, 16)
+    data_t = torch.as_tensor(data, device="cuda")
+    q_t = torch.as_tensor(q, device="cuda")
+    dist64 = sq_dist64(torch, q_t, data_t,
+                       torch.arange(data.shape[0], device="cuda"))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        idx = isax.build(data, leaf_cap=64, device=dev)
+        runs[dev] = S.search(idx, q, 600, G.exact(), visit_batch=4,
+                             share_gathers=True, device=dev)
+    dist_close(torch, runs["cuda"].dists.cpu() ** 2, runs["cpu"].dists ** 2,
+               "small share k=600 squared dists")
+    ties_only(torch, runs["cuda"].ids, runs["cpu"].ids.cuda(), dist64,
+              "small share k=600 card vs CPU")
+    wide = randomwalk.generate(seed=4, n_series=4096, series_len=192)
+    qw = queries.noisy_queries(wide, 16)
+    dist64w = sq_dist64(torch, torch.as_tensor(qw, device="cuda"),
+                        torch.as_tensor(wide, device="cuda"),
+                        torch.arange(wide.shape[0], device="cuda"))
+    for dev in ("cuda", "cpu"):
+        idx = isax.build(wide, n_segments=48, leaf_cap=64, device=dev)
+        runs[dev] = S.search(idx, qw, 10, G.exact(), device=dev)
+    dist_close(torch, runs["cuda"].dists.cpu() ** 2, runs["cpu"].dists ** 2,
+               "small isax 48 segments squared dists")
+    ties_only(torch, runs["cuda"].ids, runs["cpu"].ids.cuda(), dist64w,
+              "small isax 48 segments card vs CPU")
+
+    k = 10
+    cases = {
+        "hnsw": (lambda d: graph.build(data, m_links=8, device=d),
+                 lambda i, d: graph.query(i, q, k, efs=32, device=d)),
+        "imi": (lambda d: imi.build(data, kc=8, m=16, kmeans_iters=5,
+                                    device=d),
+                lambda i, d: imi.query(i, q, k, G.ng(8), device=d)),
+        "srs": (lambda d: srs.build(data, m=16, device=d),
+                lambda i, d: srs.query(i, q, k, G.delta_epsilon(0.9, 0.0),
+                                       device=d)),
+        "qalsh": (lambda d: qalsh.build(data, device=d),
+                  lambda i, d: qalsh.query(i, q, k, device=d)),
+    }
+    cards = {}
+    for name, (make, ask) in cases.items():
+        card = cards[name] = make("cuda")
+        got, want = ask(card, "cuda"), ask(to_device(card, "cpu"), "cpu")
+        what = f"small {name} card vs CPU"
+        dist_close(torch, got.dists.cpu() ** 2, want.dists ** 2,
+                   f"{what} squared dists")
+        # IMI's are ADC distances; QALSH may return an id twice
+        ties_only(torch, got.ids, want.ids.cuda(),
+                  want.dists ** 2 if name in ("imi", "qalsh") else dist64,
+                  what, distinct=name != "qalsh")
+        # QALSH's windows start at the query's rank on each line, found
+        # from a projection that the card's GEMM rounds otherwise than
+        # the CPU's: a query that is a row of the collection may land a
+        # rank apart and refine a row more or fewer (ids still agree)
+        for f in ("rows_scanned", "leaves_visited"):
+            if name != "qalsh" and not torch.equal(getattr(got, f).cpu(),
+                                                   getattr(want, f)):
+                raise AssertionError(f"{what}: {f} differ")
+    # the graph built on the CPU links the same members, up to ties
+    cpu_adj = graph.build(data, m_links=8, device="cpu").adj
+    card_adj = cards["hnsw"].adj.cpu()
+    diff = cpu_adj != card_adj
+    if bool(diff.any()):
+        x = torch.as_tensor(data).double()
+        node = torch.arange(data.shape[0])[None, :, None].expand_as(diff)
+
+        def link(adj):
+            return ((x[node[diff]] - x[adj[diff].long()]) ** 2).sum(-1)
+
+        if bool(((link(card_adj) - link(cpu_adj)).abs()
+                 > DIST_ATOL + DIST_RTOL * link(cpu_adj)).any()):
+            raise AssertionError("small hnsw: the card's graph links "
+                                 "other members than the CPU's, not ties")
+    print(f"  small baselines: hnsw adjacency {int(diff.sum())} entries "
+          f"differ from the CPU build (ties)")
+
+
+def lex_equal(torch, ref, got, d, ids, kk: int, what: str) -> None:
+    """lex_select's answer ``got`` on d [B, R] bit-equal to the plain
+    version, which runs on a few lanes at a time to bound its memory."""
+    step = max(1, (1 << 27) // d.shape[1])
+    for s in range(0, d.shape[0], step):
+        want = ref.ref_lex_select(d[s:s + step], ids, kk)
+        if not (torch.equal(got[0][s:s + step], want[0])
+                and torch.equal(got[1][s:s + step], want[1])):
+            raise AssertionError(f"{what}: not bit-exact")
+
+
+class PathInputs:
+    """Installed over ``ops`` (``with``), records the inputs that a path
+    gives each kernel wrapper, the first call at each shape; ``check``
+    then holds each wrapper against its plain version on them. The
+    wrappers count their launches as before, and the launches that
+    ``check`` makes to compare do not count."""
+
+    def __init__(self, torch, ops, ref, wrappers):
+        self.torch, self.ops, self.ref = torch, ops, ref
+        self.wrappers = wrappers
+        self.seen, self.held = {}, set()
+
+    def __enter__(self):
+        for name, fn in self.wrappers.items():
+            setattr(self.ops, name, self._recording(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.wrappers.items():
+            setattr(self.ops, name, fn)
+
+    def _recording(self, name, fn):
+        def call(*args):
+            key = (name,) + tuple(tuple(a.shape) if hasattr(a, "shape")
+                                  else a for a in args)
+            if key not in self.held:
+                self.seen.setdefault(key, args)
+            return fn(*args)
+
+        return call
+
+    def check(self, what: str) -> list:
+        """Holds every recorded input; returns the keys held."""
+        torch, ref = self.torch, self.ref
+        saved = {name: fn.launches for name, fn in self.wrappers.items()}
+        try:
+            for key, args in self.seen.items():
+                name, where = key[0], f"{what} {key}"
+                fn = self.wrappers[name]
+                if name == "l2":
+                    dist_close(torch, fn(*args), ref.ref_l2(*args), where)
+                elif name == "pq_adc_batch":
+                    if not torch.equal(fn(*args), ref.ref_pq_adc_batch(*args)):
+                        raise AssertionError(f"{where}: not bit-exact")
+                elif name == "lex_select":
+                    lex_equal(torch, ref, fn(*args), *args, where)
+                else:
+                    raise AssertionError(f"{where}: no plain check for "
+                                         f"{name} on this path")
+                self.held.add(key)
+        finally:
+            for name, fn in self.wrappers.items():
+                fn.launches = saved[name]
+        keys, self.seen = list(self.seen), {}
+        return keys
+
+
+BASELINE_KNOBS = {
+    "hnsw": [("efs8", dict(efs=8)), ("efs32", dict(efs=32)),
+             ("efs128", dict(efs=128))],
+    "imi": [("ng(1)", dict(nprobe=1)), ("ng(8)", dict(nprobe=8)),
+            ("ng(32)", dict(nprobe=32)),
+            ("ng(32)+refine", dict(nprobe=32, refine=True))],
+    "srs": [("d=0.5", dict(delta=0.5)), ("d=0.9", dict(delta=0.9)),
+            ("d=0.99", dict(delta=0.99))],
+    "qalsh": [("defaults", {})],
+}
+
+
+def phase_baselines(torch, G, baselines, data, q, truth, k, path):
+    """The paper's vector baselines on the main path's data and queries,
+    with the settings of its in-memory figure (bench_query_memory.py):
+    HNSW m_links = 8, IMI kc = 16, m = 16, 10 k-means iterations, SRS
+    m = 16, QALSH at its defaults. ``path`` (PathInputs) records the
+    kernels' inputs through each build and each method's queries and
+    holds them against the plain versions after it. Returns (table rows,
+    build seconds, the kernel inputs held)."""
+    from repro_torch.core.metrics import workload_metrics
+
+    graph, imi, qalsh, srs = baselines
+    builds = {
+        "hnsw": lambda: graph.build(data, m_links=8),
+        "imi": lambda: imi.build(data, kc=16, m=16, kmeans_iters=10),
+        "srs": lambda: srs.build(data, m=16),
+        "qalsh": lambda: qalsh.build(data),
+    }
+
+    def ask(name, idx, kw):
+        if name == "hnsw":
+            return graph.query(idx, q, k, **kw)
+        if name == "imi":
+            return imi.query(idx, q, k, G.ng(kw["nprobe"]),
+                             refine=kw.get("refine", False))
+        if name == "srs":
+            return srs.query(idx, q, k, G.delta_epsilon(kw["delta"], 0.0))
+        return qalsh.query(idx, q, k)
+
+    table, secs, held = [], {}, []
+    n_series = data.shape[0]
+    for name, make in builds.items():
+        with path:
+            t0 = time.perf_counter()
+            idx = make()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+        print(f"  {name} built in {secs[name]:.1f} s")
+        held += path.check(f"{name} build")
+        for knob, kw in BASELINE_KNOBS[name]:
+            with path:
+                t0 = time.perf_counter()
+                res = ask(name, idx, kw)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+            what = f"{name} {knob}"
+            found = torch.isfinite(res.dists[:, 0])
+            # QALSH's windows are fixed in ranks (frontier x steps = 512
+            # a line), so at this N a noisy query may collide with no
+            # point on l of m lines, the reference's behaviour; a query
+            # that is a row of the collection (noise level 0: every fifth
+            # query) collides with it on every line and must find it
+            must = torch.arange(q.shape[0], device=found.device) % 5 == 0 \
+                if name == "qalsh" else torch.ones_like(found)
+            if res.dists.shape != (q.shape[0], k) or not bool(
+                    found[must].all()):
+                raise AssertionError(f"{what}: wrong shape or no finite "
+                                     "nearest neighbour")
+            if name == "qalsh" and not torch.equal(
+                    res.ids[must, 0], truth.ids[must, 0]):
+                raise AssertionError(f"{what}: a query that is a row of "
+                                     "the collection did not find it")
+            m = workload_metrics(res.ids, res.dists, truth.ids, truth.dists)
+            table.append(dict(
+                method=name, knob=knob, map=m["map"],
+                recall=m["avg_recall"], mre=m["mre"],
+                pct_data=100 * float(res.rows_scanned.float().mean())
+                / n_series,
+                rows=int(res.rows_scanned.long().sum()),
+                found=int(found.sum()),
+                iterations=res.iterations, ms=sec * 1e3,
+                build_s=secs[name]))
+        held += path.check(f"{name} queries")
+        del idx
+    row = {(r["method"], r["knob"]): r for r in table}
+    checks = [
+        (row[("hnsw", "efs128")]["recall"] >= row[("hnsw", "efs8")]["recall"],
+         "hnsw recall(efs 128) >= recall(efs 8)"),
+        (row[("imi", "ng(32)")]["recall"] >= row[("imi", "ng(1)")]["recall"],
+         "imi recall(ng 32) >= recall(ng 1)"),
+        (row[("imi", "ng(32)+refine")]["map"] >= row[("imi", "ng(32)")]["map"],
+         "imi MAP(refine) >= MAP(plain)"),
+        (row[("imi", "ng(32)+refine")]["mre"]
+         <= row[("imi", "ng(32)")]["mre"] + 1e-6,
+         "imi MRE(refine) <= MRE(plain)"),
+        (row[("srs", "d=0.5")]["rows"] <= row[("srs", "d=0.99")]["rows"],
+         "srs rows scanned(delta 0.5) <= (delta 0.99)"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise AssertionError(f"baselines: {what} fails")
+    return table, secs, held
+
+
+def print_baseline_table(rows) -> None:
+    hdr = (f"{'method':6s} {'knob':14s} {'MAP':>6s} {'recall':>7s} "
+           f"{'MRE':>7s} {'%data':>8s} {'found':>5s} {'iters':>6s} "
+           f"{'ms':>9s} {'build s':>8s}")
+    print(hdr)
+    print("-" * len(hdr))
+    for r in rows:
+        print(f"{r['method']:6s} {r['knob']:14s} {r['map']:6.3f} "
+              f"{r['recall']:7.3f} {r['mre']:7.4f} {r['pct_data']:7.3f}% "
+              f"{r['found']:5d} {r['iterations']:6d} {r['ms']:9.1f} "
+              f"{r['build_s']:8.1f}")
 
 
 def kernel_rows(torch, ops, ref, build, data_t, q_t, idx, vaf, k, counts,
@@ -545,6 +875,65 @@ def kernel_rows(torch, ops, ref, build, data_t, q_t, idx, vaf, k, counts,
     return rows
 
 
+def shape_rows(torch, ops, ref, data_t, q_t):
+    """Kernels at shapes beside the main path's, timed beside their bound:
+    K3 and lex_select at the HNSW build's level-0 block (512 lanes against
+    2^20 members, kk = 8, unstaged; the baselines phase held the same
+    inputs against the plain versions), then, each checked bit-equal
+    against its plain version first, lex_select at kk = 1200 and 4096
+    (the sort through device memory) and K1 at D = 64 (chunks of 32
+    dims)."""
+    out = []
+
+    def add(name, shape, fn, n_bytes, n_ops, rate=PEAK_F32_INSTR):
+        bnd, by = bound_ms(n_bytes, n_ops, rate)
+        out.append(dict(name=name, shape=shape, ms=cuda_ms(torch, fn, 5),
+                        bound_ms=bnd, bound_by=by))
+
+    def add_exact(name, shape, got, want, fn, n_bytes, n_ops):
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name} {shape}: not bit-exact")
+        add(name, shape, fn, n_bytes, n_ops)
+
+    n_rows, n = data_t.shape
+    blk = 512
+    x = data_t[:blk]
+    add("l2", f"B={blk} M={n_rows} n={n} (HNSW build block)",
+        lambda: ops.l2(x, data_t),
+        4 * (blk * n + n_rows * n + blk * n_rows),
+        2 * blk * n_rows * n + 2 * (blk + n_rows) * n + 3 * blk * n_rows,
+        rate=PEAK_F32_FLOPS)
+    d = ops.l2(x, data_t)
+    rows = torch.arange(blk, device="cuda")
+    d[rows, rows] = float("inf")
+    ids = torch.arange(n_rows, dtype=torch.int32, device="cuda")
+    add("lex_select", f"B={blk} R={n_rows} kk=8 (HNSW build block)",
+        lambda: ops.lex_select(d, ids, 8),
+        4 * (blk * n_rows + n_rows) + 8 * blk * 8, blk * n_rows)
+    del d
+    b, r = q_t.shape[0], 25600
+    s = ops.l2(q_t, data_t[:r])
+    ids = torch.arange(r, dtype=torch.int32, device="cuda")
+    for kk in (1200, 4096):
+        add_exact("lex_select", f"B={b} R={r} kk={kk}",
+                  ops.lex_select(s, ids, kk), ref.ref_lex_select(s, ids, kk),
+                  lambda kk=kk: ops.lex_select(s, ids, kk),
+                  4 * (b * r + r) + 8 * b * kk, b * r)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dims = 64
+    qb = torch.randn(b, dims, generator=g, device="cuda")
+    lo = torch.randn(n_rows, dims, generator=g, device="cuda") - 1.0
+    hi = lo + torch.rand(n_rows, dims, generator=g, device="cuda")
+    w = torch.rand(dims, generator=g, device="cuda") + 0.5
+    a = (qb, lo, hi, w)
+    add_exact("box_mindist", f"B={b} L={n_rows} D={dims}",
+              (ops.box_mindist(*a),), (ref.ref_box_mindist(*a),),
+              lambda: ops.box_mindist(*a),
+              4 * (b * dims + 2 * n_rows * dims + dims + b * n_rows),
+              7 * b * n_rows * dims)
+    return out
+
+
 def print_ooc_table(rows) -> None:
     hdr = (f"{'codec':5s} {'guarantee':14s} {'MAP':>6s} {'recall':>7s} "
            f"{'MRE':>7s} {'leaves':>7s} {'%data':>7s} {'iters':>6s} "
@@ -656,7 +1045,8 @@ def main() -> int:
     sys.path.insert(0, str(root / "src"))
     from repro_torch.core import guarantees as G
     from repro_torch.core import search as S
-    from repro_torch.core.indexes import dstree, isax, vafile
+    from repro_torch.core.indexes import (dstree, graph, imi, isax, qalsh,
+                                          srs, vafile)
     from repro_torch.data import queries, randomwalk
     from repro_torch.kernels import build, ops, ref
 
@@ -690,8 +1080,10 @@ def main() -> int:
     print(f"ragged kernel checks: ok ({time.perf_counter() - t0:.1f} s)")
 
     idx_mods = (isax, dstree, vafile)
+    baselines = (graph, imi, qalsh, srs)
     t0 = time.perf_counter()
     phase_small(torch, S, G, idx_mods, randomwalk, queries)
+    phase_small_wide(torch, S, G, isax, baselines, randomwalk, queries)
     print(f"small input, card vs CPU: ok ({time.perf_counter() - t0:.1f} s)")
 
     n_series, k = args.n_series, 100
@@ -711,6 +1103,7 @@ def main() -> int:
     table, results, builds, built, truth = quickstart(
         torch, S, G, idx_mods, data, q, k, 256, "cuda", log=print)
     counts = {name: fn.launches for name, fn in wrappers.items()}
+    mem_counts = dict(counts)
     print_table(table)
     print("build seconds: " + ", ".join(
         f"{name} {sec:.1f}" for name, sec in builds.items()))
@@ -763,8 +1156,39 @@ def main() -> int:
     counts.update({name: ooc_counts[name]
                    for name in ("pq_adc_batch", "pq_adc_select")})
 
+    # the vector baselines on the main path's data, with their own counts
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    base_table, base_builds, held = phase_baselines(
+        torch, G, baselines, data, q, truth, k,
+        PathInputs(torch, ops, ref, wrappers))
+    base_counts = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"vector baselines at N = {n_series} "
+          f"({time.perf_counter() - t0:.1f} s):")
+    print_baseline_table(base_table)
+    print(f"kernel inputs of the baselines path held against the plain "
+          f"versions ({len(held)}): " + "; ".join(
+              f"{key[0]} {key[1:]}" for key in held))
+    print(f"launches on the baselines path: {base_counts}")
+    missing = [name for name in ("l2", "pq_adc_batch", "lex_select")
+               if base_counts[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the baselines "
+                             f"path: {missing}")
+
     rows = kernel_rows(torch, ops, ref, build, data_t, q_t, built["isax2+"],
                        built["va+file"], k, counts, pq_in)
+    for r in rows:
+        r["launches_by_path"] = {
+            "in_memory": mem_counts[r["name"]],
+            "out_of_core": ooc_counts[r["name"]],
+            "baselines": base_counts[r["name"]]}
+    shapes = shape_rows(torch, ops, ref, data_t, q_t)
+    for r in shapes:
+        print(f"  {r['name']} at {r['shape']}: {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    print(json.dumps({"kernel_shapes": shapes}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

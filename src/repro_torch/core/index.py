@@ -174,8 +174,4 @@ def frozen_index_from_arrays(arrays: Mapping[str, np.ndarray],
 
 def index_device(index: FrozenIndex, device) -> torch.device:
     """Resolve ``device`` for a search and check the index lives there."""
-    dev = device_mod.resolve(device)
-    if index.device.type != dev.type:
-        raise ValueError(f"the index lives on {index.device}, the search "
-                         f"was asked to run on {dev}")
-    return dev
+    return device_mod.matching(index.device, device)

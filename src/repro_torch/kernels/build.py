@@ -31,7 +31,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 # C signature of every exported function: (argtypes), restype is int
-# (the cudaError_t of the launch, 0 on success)
+# (the cudaError_t of a launch, 0 on success; a size for a query)
 SIGNATURES = {
     "box_mindist": {"box_mindist_f32": (_P, _P, _P, _P, _P, _I, _LL, _I,
                                         _P)},
@@ -41,7 +41,9 @@ SIGNATURES = {
     "topk": {"coop_score_f32": (_P, _P, _P, _P, _I, _LL, _I, _P),
              "coop_score_bf16": (_P, _P, _P, _P, _I, _LL, _I, _P)},
     "pq_adc": {"pq_adc_u8": (_P, _P, _P, _I, _LL, _I, _I, _I, _P)},
-    "lex_select": {"lex_select_f32": (_P, _P, _P, _P, _I, _LL, _I, _P)},
+    "lex_select": {"lex_select_f32": (_P, _P, _P, _P, _I, _LL, _I, _P,
+                                      _P),
+                   "lex_select_scratch_buffers": (_I,)},
 }
 
 # one loaded library per source for the process, filled under _lock

@@ -16,6 +16,15 @@
 // lane's row of output is written by consecutive threads to consecutive
 // addresses. Every sum runs left to right without fused multiply-adds,
 // the order of the plain version.
+//
+// D > 32 (box_mindist_wide_kernel): the same block walks D in chunks of
+// 32 dims. For each chunk it stages the lanes' and the boxes' columns,
+// lifts the chunk of its box into registers, and adds the chunk's terms
+// to each lane's running sum, which waits in the output between chunks
+// (the thread that owns the element reads back what it wrote). A float
+// sum continued from its stored f32 value is the same left-to-right sum,
+// so the result stays bit-equal to the plain version; the output is
+// read and written once more per chunk after the first.
 #include "common.cuh"
 
 namespace {
@@ -98,11 +107,94 @@ box_mindist_kernel(const float* __restrict__ q, const float* __restrict__ lo,
   }
 }
 
+
+// D > 32: chunks of kChunk dims, the running sum kept in the output
+constexpr int kChunk = 32;
+
+__global__ void __launch_bounds__(kBoxes)
+box_mindist_wide_kernel(const float* __restrict__ q,
+                        const float* __restrict__ lo,
+                        const float* __restrict__ hi,
+                        const float* __restrict__ w, float* __restrict__ out,
+                        int B, long long L, int D) {
+  __shared__ float box_s[kBoxes * (kChunk + 1)];
+  __shared__ float q_s[kQueries * kChunk];
+  __shared__ float w_s[kChunk];
+  const long long l0 = (long long)blockIdx.x * kBoxes;
+  const int b0 = blockIdx.y * kQueries;
+  const int nb = (int)min((long long)kBoxes, L - l0);
+  const int nq = min(kQueries, B - b0);
+  const int t = threadIdx.x;
+  const bool own = t < nb;
+  float* o = out + (long long)b0 * L + l0 + t;
+  float lo_r[kChunk], hi_r[kChunk];
+  for (int c0 = 0; c0 < D; c0 += kChunk) {
+    const int dc = min(kChunk, D - c0);
+    const int stride = dc + 1;  // odd stride: conflict-free row reads
+    __syncthreads();  // the previous chunk is done with the buffers
+    for (int e = t; e < nq * dc; e += kBoxes) {
+      const int r = e / dc, c = e - r * dc;
+      q_s[e] = q[(long long)(b0 + r) * D + c0 + c];
+    }
+    if (t < dc) w_s[t] = w[c0 + t];
+    for (int e = t; e < nb * dc; e += kBoxes) {
+      const int r = e / dc, c = e - r * dc;
+      box_s[r * stride + c] = lo[(l0 + r) * D + c0 + c];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int d = 0; d < kChunk; ++d)
+      if (d < dc && own) lo_r[d] = box_s[t * stride + d];
+    __syncthreads();
+    for (int e = t; e < nb * dc; e += kBoxes) {
+      const int r = e / dc, c = e - r * dc;
+      box_s[r * stride + c] = hi[(l0 + r) * D + c0 + c];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int d = 0; d < kChunk; ++d)
+      if (d < dc && own) hi_r[d] = box_s[t * stride + d];
+    if (!own) continue;  // every barrier sits at the loop's top
+    int b = 0;
+    for (; b + kUnroll <= nq; b += kUnroll) {
+      float acc[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        acc[u] = c0 ? o[(long long)(b + u) * L] : 0.f;
+#pragma unroll
+      for (int d = 0; d < kChunk; ++d) {
+        if (d < dc) {
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const float qd = q_s[(b + u) * dc + d];
+            const float g = fmaxf(fmaxf(lo_r[d] - qd, qd - hi_r[d]), 0.f);
+            acc[u] = __fadd_rn(acc[u], __fmul_rn(__fmul_rn(g, g), w_s[d]));
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) o[(long long)(b + u) * L] = acc[u];
+    }
+    for (; b < nq; ++b) {
+      float acc = c0 ? o[(long long)b * L] : 0.f;
+#pragma unroll
+      for (int d = 0; d < kChunk; ++d) {
+        if (d < dc) {
+          const float qd = q_s[b * dc + d];
+          const float g = fmaxf(fmaxf(lo_r[d] - qd, qd - hi_r[d]), 0.f);
+          acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(g, g), w_s[d]));
+        }
+      }
+      o[(long long)b * L] = acc;
+    }
+  }
+}
+
 extern "C" int box_mindist_f32(const void* q, const void* lo, const void* hi,
                                const void* w, void* out, int B, long long L,
                                int D, void* stream) {
   if (B == 0 || L == 0) return 0;
-  if (D < 1 || D > 32) return (int)cudaErrorInvalidValue;
+  if (D < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((L + kBoxes - 1) / kBoxes),
                   (unsigned)((B + kQueries - 1) / kQueries));
   cudaStream_t st = (cudaStream_t)stream;
@@ -114,8 +206,11 @@ extern "C" int box_mindist_f32(const void* q, const void* lo, const void* hi,
   if (D <= 16)
     box_mindist_kernel<16><<<grid, kBoxes, 0, st>>>(qf, lof, hif, wf, of, B,
                                                     L, D);
-  else
+  else if (D <= 32)
     box_mindist_kernel<32><<<grid, kBoxes, 0, st>>>(qf, lof, hif, wf, of, B,
                                                     L, D);
+  else
+    box_mindist_wide_kernel<<<grid, kBoxes, 0, st>>>(qf, lof, hif, wf, of, B,
+                                                     L, D);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 // lex_select: per lane b, the kk lexicographically smallest (d, id) pairs
 // of the scores S[b, :] against the shared ids [R], sorted by (d, id); a
 // slot whose id is negative counts as (inf, id), so the -1 slots come out
-// as (inf, -1). kk <= 1024. Precondition (as for the reference): real
-// ids are distinct, so only the masked key repeats.
+// as (inf, -1). Any 1 <= kk <= R. Precondition (as for the reference):
+// real ids are distinct, so only the masked key repeats.
 //
 // Replaces the selection stage of src/repro/kernels/topk.py
 // (lex_min_select: kk rounds of lexicographic min-extraction in VMEM),
@@ -34,9 +34,17 @@
 //   If all 64 bits are fixed and the bin still holds more keys than
 //     needed, those keys all equal the prefix (the repeated masked key),
 //     and the prefix fills the rest.
-//   Sort: the selected rows' keys (ids read once, here), at most 1024,
-//     one a thread, go through a bitonic network: shuffles for strides
-//     below 32, shared memory above.
+//   Sort, kk <= 1024: the selected rows' keys (ids read once, here), one
+//     a thread, go through a bitonic network: shuffles for strides below
+//     32, shared memory above.
+//   Sort, kk > 1024: the block writes the selected keys to a scratch
+//     [B, kk] in device memory that the caller allocates (the selection
+//     itself is the same). Then one block a run of kRun keys sorts it
+//     with a bitonic network in dynamic shared memory (64 KiB), and
+//     merge-path passes merge pairs of runs through a second scratch
+//     until one sorted run a lane is left; the last step writes (d, id).
+//     Equal keys are the one repeated masked key, so every sort order
+//     writes the same bits.
 #include "common.cuh"
 
 namespace {
@@ -49,6 +57,9 @@ constexpr int kCap = 4096;            // candidate list, rows
 constexpr int kStageMax = 48 * 1024;  // staged rows a lane, 192 KiB
 constexpr unsigned kInfHi = 0xff800000u;  // ordered bits of +inf
 constexpr unsigned kNone = 0xffffffffu;
+constexpr int kRun = 8192;        // keys a run, 64 KiB of shared memory
+constexpr int kMergeThreads = 256;
+constexpr int kItems = 8;         // merged keys a thread
 typedef unsigned long long Key;  // (ordered d bits, id bits)
 // histogram (reused as the sort's exchange buffer), selected rows, list
 constexpr size_t kSmemFixed =
@@ -70,11 +81,18 @@ __device__ __forceinline__ unsigned id_bits(int id) {
   return (unsigned)id ^ 0x80000000u;
 }
 
-template <bool kStaged>
+__device__ __forceinline__ void write_pair(float* out_d, int* out_i,
+                                           long long o, Key v) {
+  out_d[o] = unordered((unsigned)(v >> 32));
+  out_i[o] = (int)((unsigned)v ^ 0x80000000u);
+}
+
+// kLarge: kk > kMaxKK, the selected keys go to keys [B, kk] unsorted
+template <bool kStaged, bool kLarge>
 __global__ void __launch_bounds__(kThreads)
 lex_select_kernel(const float* __restrict__ S, const int* __restrict__ ids,
                   float* __restrict__ out_d, int* __restrict__ out_i, int R,
-                  int kk) {
+                  int kk, Key* __restrict__ keys) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned* hist = reinterpret_cast<unsigned*>(smem);
   Key* xchg = reinterpret_cast<Key*>(hist);  // the sort's, after the passes
@@ -101,6 +119,15 @@ lex_select_kernel(const float* __restrict__ S, const int* __restrict__ ids,
   // the key where only bits >= 32 matter, without reading the id
   auto key_hi = [&](int r, int shift) -> Key {
     return shift >= 32 ? ((Key)hi_of(r) << 32) : key_of(r);
+  };
+  // a selected row: to the shared list, or its key to the lane's scratch
+  Key* lane_keys = kLarge ? keys + (long long)blockIdx.x * kk : nullptr;
+  auto take = [&](int pos, int r) {
+    if constexpr (kLarge) {
+      lane_keys[pos] = key_of(r);
+    } else {
+      sel[pos] = r;
+    }
   };
 
   if (tid == 0) {
@@ -255,7 +282,7 @@ lex_select_kernel(const float* __restrict__ S, const int* __restrict__ ids,
       for (int r = tid; r < R; r += kThreads) {
         const Key k = key_hi(r, sh) >> sh;
         if (k < pt)
-          sel[atomicAdd(&s_nsel, 1)] = r;
+          take(atomicAdd(&s_nsel, 1), r);
         else if (k == pt)
           cand[atomicAdd(&s_ncand, 1)] = r;
       }
@@ -273,11 +300,16 @@ lex_select_kernel(const float* __restrict__ S, const int* __restrict__ ids,
     const Key k = key_hi(r, fixed) >> fixed;
     if (k < pt || (exact && k == pt)) {
       const int pos = atomicAdd(&s_nsel, 1);
-      if (pos < kk) sel[pos] = r;
+      if (pos < kk) take(pos, r);
     }
   }
   __syncthreads();
   // all 64 bits fixed and the bin not exact: the rest repeat the prefix
+  if constexpr (kLarge) {
+    for (int j = min(s_nsel, kk) + tid; j < kk; j += kThreads)
+      lane_keys[j] = prefix;
+    return;  // sorted by sort_runs and merge_runs
+  }
   for (int j = min(s_nsel, kk) + tid; j < kk; j += kThreads) sel[j] = -1;
   __syncthreads();
   // bitonic sort of kp = 2^ceil(log2 kk) keys, thread t holding key t:
@@ -301,38 +333,165 @@ lex_select_kernel(const float* __restrict__ S, const int* __restrict__ ids,
       v = keep_min == (other < v) ? other : v;
     }
   }
-  if (tid < kk) {
-    const long long o = (long long)blockIdx.x * kk + tid;
-    out_d[o] = unordered((unsigned)(v >> 32));
-    out_i[o] = (int)((unsigned)v ^ 0x80000000u);
+  if (tid < kk)
+    write_pair(out_d, out_i, (long long)blockIdx.x * kk + tid, v);
+}
+
+// One block per (lane, run): keys[b, j*kRun : (j+1)*kRun) sorted in
+// place in shared memory; with one run a lane (last), written as (d, id).
+__global__ void __launch_bounds__(kThreads)
+sort_runs(Key* __restrict__ keys, float* __restrict__ out_d,
+          int* __restrict__ out_i, int kk, bool last) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Key* run = reinterpret_cast<Key*>(smem);
+  const int nruns = (kk + kRun - 1) / kRun;
+  for (int j = blockIdx.y; j < nruns; j += gridDim.y) {
+    const long long base = (long long)blockIdx.x * kk + (long long)j * kRun;
+    const int n = min(kRun, kk - j * kRun);
+    int p = 2;
+    while (p < n) p <<= 1;
+    __syncthreads();  // the previous run's writes have read run[]
+    for (int i = threadIdx.x; i < p; i += kThreads)
+      run[i] = i < n ? keys[base + i] : ~0ull;
+    for (int size = 2; size <= p; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        __syncthreads();
+        // pair t: i = its lower index, the partner stride above it
+        for (int t = threadIdx.x; t < p / 2; t += kThreads) {
+          const int i = 2 * t - (t & (stride - 1));
+          const Key a = run[i], c = run[i + stride];
+          if ((a > c) == ((i & size) == 0)) {
+            run[i] = c;
+            run[i + stride] = a;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      if (last)
+        write_pair(out_d, out_i, base + i, run[i]);
+      else
+        keys[base + i] = run[i];
+    }
+  }
+}
+
+// Merge path: the sorted runs of width w in src [B, kk] merge in pairs
+// into dst; each thread writes kItems consecutive outputs of its lane,
+// from where a binary search on its diagonal puts it. The last pass
+// writes (d, id) instead.
+__global__ void __launch_bounds__(kMergeThreads)
+merge_runs(const Key* __restrict__ src, Key* __restrict__ dst,
+           float* __restrict__ out_d, int* __restrict__ out_i, int kk,
+           int w, bool last) {
+  const long long lane = (long long)blockIdx.x * kk;
+  const long long step = (long long)gridDim.y * kMergeThreads * kItems;
+  for (long long o0 =
+           ((long long)blockIdx.y * kMergeThreads + threadIdx.x) * kItems;
+       o0 < kk; o0 += step) {
+    const long long s = o0 / (2LL * w) * (2LL * w);  // the pair's start
+    const Key* a = src + lane + s;
+    const int la = (int)min((long long)w, kk - s);
+    const Key* bb = a + la;
+    const int lb = (int)max(0LL, min((long long)w, kk - s - w));
+    const int diag = (int)(o0 - s);
+    int lo = max(0, diag - lb), hi = min(diag, la);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (a[mid] <= bb[diag - 1 - mid])
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    int i = lo, j = diag - lo;
+    const int n = (int)min((long long)kItems, kk - o0);
+    for (int t = 0; t < n; ++t) {
+      const bool take_a = j >= lb || (i < la && a[i] <= bb[j]);
+      const Key v = take_a ? a[i++] : bb[j++];
+      if (last)
+        write_pair(out_d, out_i, lane + o0 + t, v);
+      else
+        dst[lane + o0 + t] = v;
+    }
   }
 }
 }  // namespace
 
-// S [B, R] f32, ids [R] int32, out_d [B, kk] f32, out_i [B, kk] int32.
+// How many [B, kk] buffers of 64-bit keys lex_select_f32 needs as its
+// scratch: two when the sort runs through device memory, else none.
+extern "C" int lex_select_scratch_buffers(int kk) {
+  return kk > kMaxKK ? 2 : 0;
+}
+
+// S [B, R] f32, ids [R] int32, out_d [B, kk] f32, out_i [B, kk] int32;
+// scratch: lex_select_scratch_buffers(kk) * B * kk keys of device memory.
 extern "C" int lex_select_f32(const void* S, const void* ids, void* out_d,
                               void* out_i, int B, long long R, int kk,
-                              void* stream) {
+                              void* scratch, void* stream) {
   if (B == 0) return 0;
-  if (kk < 1 || kk > kMaxKK || kk > R || R > 0x7fffffffLL)
+  const bool large = kk > kMaxKK;
+  if (kk < 1 || kk > R || R > 0x7fffffffLL ||
+      (large && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   const float* s = static_cast<const float*>(S);
   const int* i = static_cast<const int*>(ids);
   float* d = static_cast<float*>(out_d);
   int* o = static_cast<int*>(out_i);
+  Key* keys = static_cast<Key*>(scratch);
   cudaStream_t st = (cudaStream_t)stream;
-  if (R <= kStageMax) {
+  const size_t staged_smem = kSmemFixed + (size_t)R * sizeof(unsigned);
+  const int max_staged = (int)(kSmemFixed + kStageMax * sizeof(unsigned));
+  if (!large && R <= kStageMax) {
     // set once for the process: the largest staged lane
     static const cudaError_t attr = cudaFuncSetAttribute(
-        lex_select_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(kSmemFixed + kStageMax * sizeof(unsigned)));
+        lex_select_kernel<true, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, max_staged);
     if (attr != cudaSuccess) return (int)attr;
-    lex_select_kernel<true><<<B, kThreads,
-                              kSmemFixed + (size_t)R * sizeof(unsigned), st>>>(
-        s, i, d, o, (int)R, kk);
-  } else {
-    lex_select_kernel<false><<<B, kThreads, kSmemFixed, st>>>(s, i, d, o,
-                                                              (int)R, kk);
+    lex_select_kernel<true, false><<<B, kThreads, staged_smem, st>>>(
+        s, i, d, o, (int)R, kk, nullptr);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (!large) {
+    lex_select_kernel<false, false><<<B, kThreads, kSmemFixed, st>>>(
+        s, i, d, o, (int)R, kk, nullptr);
+    return (int)cudaGetLastError();
+  }
+  if (R <= kStageMax) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        lex_select_kernel<true, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, max_staged);
+    if (attr != cudaSuccess) return (int)attr;
+    lex_select_kernel<true, true><<<B, kThreads, staged_smem, st>>>(
+        s, i, d, o, (int)R, kk, keys);
+  } else {
+    lex_select_kernel<false, true><<<B, kThreads, kSmemFixed, st>>>(
+        s, i, d, o, (int)R, kk, keys);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // sort the runs, then merge pairs until one run a lane is left
+  static const cudaError_t run_attr = cudaFuncSetAttribute(
+      sort_runs, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(kRun * sizeof(Key)));
+  if (run_attr != cudaSuccess) return (int)run_attr;
+  const int nruns = (kk + kRun - 1) / kRun;
+  const dim3 run_grid(B, min(nruns, 65535));
+  sort_runs<<<run_grid, kThreads, kRun * sizeof(Key), st>>>(keys, d, o, kk,
+                                                            nruns == 1);
+  err = cudaGetLastError();
+  Key* src = keys;
+  Key* dst = keys + (long long)B * kk;
+  const long long chunks =
+      ((long long)kk + kMergeThreads * kItems - 1) / (kMergeThreads * kItems);
+  const dim3 merge_grid(B, (unsigned)min(chunks, 65535LL));
+  for (long long w = kRun; w < kk && err == cudaSuccess; w *= 2) {
+    merge_runs<<<merge_grid, kMergeThreads, 0, st>>>(src, dst, d, o, kk,
+                                                     (int)w, 2 * w >= kk);
+    err = cudaGetLastError();
+    Key* t = src;
+    src = dst;
+    dst = t;
+  }
+  return (int)err;
 }

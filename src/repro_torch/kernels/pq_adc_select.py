@@ -6,8 +6,8 @@ shared-row-set scan (``csrc/pq_adc.cu``, the table of each lane staged
 in shared memory, bit-equal to the plain ADC) writes every lane's ADC
 distance to every pooled code row into a [B, R] matrix, and
 :func:`lex_select.lex_select` keeps each lane's kk smallest (d, id)
-pairs, up to 1024, which covers the pq corner's kk = 2 * k * rerank =
-800 at k = 100 and the default rerank of 4. The selection's key orders
+pairs (the pq corner's kk = 2 * k * rerank is 800 at k = 100 and the
+default rerank of 4; any kk up to the pool). The selection's key orders
 negative distances too, so any finite table works.
 """
 
@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .lex_select import MAX_KK, lex_select
+from .lex_select import lex_select
 from .pq_adc import pq_adc_batch
 
 
@@ -27,14 +27,11 @@ def pq_adc_select(codes: torch.Tensor, luts: torch.Tensor,
     d [B, kk] f32, ids [B, kk] int32. Masked slots carry id -1 and score
     (inf, -1). Precondition: real ids are distinct in the pool. A CPU
     tensor takes the plain version; CUDA tensors launch the kernels,
-    which hold kk <= MAX_KK."""
+    any kk up to the pool."""
     if kk > codes.shape[0]:
         raise ValueError(f"kk={kk} exceeds the pool of {codes.shape[0]} rows")
     if codes.device.type == "cpu":
         return ref.ref_pq_adc_select(codes, luts, ids, kk)
-    if not 1 <= kk <= MAX_KK:
-        raise ValueError(f"pq_adc_select keeps at most {MAX_KK} candidates "
-                         f"per lane, asked for kk={kk}")
     if codes.dim() != 2 or ids.shape != (codes.shape[0],):
         raise ValueError(f"pq_adc_select shapes disagree: codes "
                          f"{codes.shape}, ids {ids.shape}")

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .lex_select import MAX_KK, lex_select
+from .lex_select import lex_select
 
 
 def coop_score_select(q: torch.Tensor, rows: torch.Tensor,
@@ -25,16 +25,13 @@ def coop_score_select(q: torch.Tensor, rows: torch.Tensor,
     pooled rows, sorted: d [B, kk] f32, ids [B, kk] int32. Masked slots
     carry id -1 and score (inf, -1). Precondition: real ids are distinct
     in the pool. A CPU tensor takes the plain version; CUDA tensors
-    launch the kernels, which hold kk <= MAX_KK."""
+    launch the kernels, any kk up to the pool."""
     if kk > rows.shape[0]:
         raise ValueError(f"kk={kk} exceeds the pool of {rows.shape[0]} rows")
     if q.device.type == "cpu":
         return ref.ref_coop_score_select(q, rows, row_norms, ids, kk)
     from . import build
 
-    if not 1 <= kk <= MAX_KK:
-        raise ValueError(f"coop_score_select keeps at most {MAX_KK} "
-                         f"candidates per lane, asked for kk={kk}")
     build.require(rows, (torch.float32, torch.bfloat16),
                   "coop_score_select rows", 2)
     qf = q.float().contiguous()

@@ -1,5 +1,6 @@
 """repro_torch on the card: each CUDA kernel against its plain version,
-the entry points' default device, and one out-of-core search per codec. Needs a CUDA device (skips
+the entry points' default device, one out-of-core search per codec and
+each vector baseline against the CPU. Needs a CUDA device (skips
 elsewhere) but not jax, so it runs on the GPU machine:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -13,8 +14,10 @@ from _lex_cases import LEX_CASES, lex_case
 from repro_torch.core import guarantees as G
 from repro_torch.core import search
 from repro_torch.core.index import FrozenIndex
-from repro_torch.core.indexes import dstree, isax, vafile
+from repro_torch.core.indexes import (dstree, graph, imi, isax, qalsh, srs,
+                                      vafile)
 from repro_torch.data import queries, randomwalk
+from repro_torch.device import to_device
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.gpu
@@ -74,7 +77,8 @@ def test_entry_points_run_on_the_card_by_default(cuda, builder,
 @pytest.mark.parametrize("name", ["pq_adc_batch", "pq_adc_select"])
 def test_pq_kernels_match_plain_version_on_card(cuda, name):
     """K5 is bit-equal to its plain version (the same left-to-right sum);
-    K6 too, ties decided by id, masked slots (inf, -1), kk up to 800."""
+    K6 too, ties decided by id, masked slots (inf, -1), kk up to 1200,
+    past the selection's sort in shared memory."""
     g = torch.Generator(device=cuda).manual_seed(1)
     codes = torch.randint(0, 256, (3000, 16), generator=g, device=cuda,
                           dtype=torch.uint8)
@@ -91,13 +95,11 @@ def test_pq_kernels_match_plain_version_on_card(cuda, name):
         return
     ids = torch.randperm(3000, generator=g, device=cuda).to(torch.int32)
     ids[::5] = -1
-    for kk in (1, 40, 800):
+    for kk in (1, 40, 800, 1200):
         got = ops.pq_adc_select(codes, luts, ids, kk)
         want = ref.ref_pq_adc_select(codes, luts, ids, kk)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    with pytest.raises(ValueError, match="at most"):
-        ops.pq_adc_select(codes, luts, ids, 1025)
-    assert ops.pq_adc_select.launches == before + 3
+    assert ops.pq_adc_select.launches == before + 4
 
 
 @pytest.mark.parametrize("case", LEX_CASES)
@@ -113,10 +115,11 @@ def test_lex_select_matches_plain_version_on_card(cuda, case):
     assert ops.lex_select.launches == before + 1
 
 
-@pytest.mark.parametrize("kk", [256, 1024])
+@pytest.mark.parametrize("kk", [256, 1024, 2000])
 def test_coop_score_select_large_kk_on_card(cuda, kk):
-    """K4 above its former limit of 256, on small integers (exact
-    distances, so bit-equal to the plain version, ties decided by id)."""
+    """K4 at large kk (2000 sorts through device memory), on small
+    integers (exact distances, so bit-equal to the plain version, ties
+    decided by id)."""
     rng = np.random.default_rng(kk)
     q = torch.as_tensor(rng.integers(-2, 3, (20, 16)).astype(np.float32),
                         device=cuda)
@@ -165,3 +168,105 @@ def test_ooc_search_on_the_card(cuda, tmp_path, codec):
                                  share_gathers=share)
             assert torch.equal(out.result.ids, want.ids)
             assert torch.equal(out.result.rows_scanned, want.rows_scanned)
+
+
+@pytest.mark.parametrize("kk", [1025, 4096, 20000])
+def test_lex_select_past_shared_memory_on_card(cuda, kk):
+    """kk > 1024 sorts through device memory (20000 spans three runs of
+    the merge sort): bit-equal to the plain version, ties decided by id,
+    masked slots (inf, -1), -0 beside +0 and negative scores."""
+    rng = np.random.default_rng(kk)
+    r = kk + 3000
+    d = rng.integers(-4, 5, (3, r)).astype(np.float32)
+    d[0] = rng.normal(size=r).astype(np.float32)
+    d[0, ::11] = -0.0
+    ids = rng.permutation(2 * r)[:r].astype(np.int32)
+    ids[::7] = -1
+    d, ids = torch.as_tensor(d, device=cuda), torch.as_tensor(ids,
+                                                              device=cuda)
+    before = ops.lex_select.launches
+    got, want = ops.lex_select(d, ids, kk), ref.ref_lex_select(d, ids, kk)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert ops.lex_select.launches == before + 1
+
+
+@pytest.mark.parametrize("dims", [33, 64, 100])
+def test_box_mindist_any_width_on_card(cuda, dims):
+    """Boxes wider than 32 dims run in chunks of 32, the sum still left
+    to right: bit-equal to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(dims)
+    q = torch.randn(131, dims, generator=g, device=cuda)
+    lo = torch.randn(517, dims, generator=g, device=cuda) - 1.0
+    hi = lo + torch.rand(517, dims, generator=g, device=cuda) * 2.0
+    w = torch.rand(dims, generator=g, device=cuda) + 0.5
+    before = ops.box_mindist.launches
+    assert torch.equal(ops.box_mindist(q, lo, hi, w),
+                       ref.ref_box_mindist(q, lo, hi, w))
+    assert ops.box_mindist.launches == before + 1
+
+
+def test_share_gathers_at_k600_on_card(cuda):
+    """share_gathers at k = 600 asks the selection for kk = 1200: the
+    card answers as the CPU does (ids equal apart from swaps between
+    ties, squared distances within 1e-3: a query that is a row of the
+    collection sits at 0, where a square root magnifies rounding)."""
+    data = randomwalk.generate(seed=8, n_series=4096, series_len=64)
+    q = queries.noisy_queries(data, 16)
+    want = search.search(isax.build(data, leaf_cap=64, device="cpu"), q,
+                         600, visit_batch=4, share_gathers=True,
+                         device="cpu")
+    before = ops.lex_select.launches
+    got = search.search(isax.build(data, leaf_cap=64), q, 600,
+                        visit_batch=4, share_gathers=True)
+    assert ops.lex_select.launches > before
+    torch.testing.assert_close(got.dists.cpu() ** 2, want.dists ** 2, **TOL)
+    diff = got.ids.cpu() != want.ids
+    x = torch.as_tensor(data).double()
+    qd = torch.as_tensor(q).double()
+
+    def dist(ids):
+        return ((x[ids.long()] - qd[:, None, :]) ** 2).sum(-1)
+
+    assert bool(((dist(got.ids.cpu()) - dist(want.ids)).abs()[diff]
+                 <= 1e-3).all())
+
+
+BASELINES = {
+    "graph": (lambda x, d: graph.build(x, m_links=8, device=d),
+              lambda i, q, d: graph.query(i, q, 10, efs=32, device=d)),
+    "imi": (lambda x, d: imi.build(x, kc=8, m=16, kmeans_iters=5, device=d),
+            lambda i, q, d: imi.query(i, q, 10, G.ng(8), device=d)),
+    "srs": (lambda x, d: srs.build(x, m=16, device=d),
+            lambda i, q, d: srs.query(i, q, 10, G.delta_epsilon(0.9, 0.0),
+                                      device=d)),
+    "qalsh": (lambda x, d: qalsh.build(x, device=d),
+              lambda i, q, d: qalsh.query(i, q, 10, device=d)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BASELINES))
+def test_baseline_on_the_card_matches_the_cpu(cuda, name):
+    """One index built on the card and copied to the CPU: the card's
+    query (K3, K5, lex_select) answers as the plain versions do. rows
+    and leaves equal, squared distances within 1e-3, and an id may
+    differ only where the CPU's distances tie at that rank. QALSH's rows
+    may differ: a query's rank on each line comes from a projection the
+    card's GEMM rounds otherwise, and a query that is a row of the
+    collection can land a rank apart."""
+    data = randomwalk.generate(seed=9, n_series=4096, series_len=128)
+    q = queries.noisy_queries(data, 16)
+    make, ask = BASELINES[name]
+    card = make(data, "cuda")
+    cpu = to_device(card, "cpu")
+    got, want = ask(card, q, "cuda"), ask(cpu, q, "cpu")
+    assert got.ids.is_cuda
+    for f in ("rows_scanned", "leaves_visited"):
+        if name != "qalsh":
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    wd = want.dists.double() ** 2
+    torch.testing.assert_close(got.dists.cpu().double() ** 2, wd, **TOL)
+    near = (wd[:, 1:] - wd[:, :-1]).abs() <= 1e-3
+    tie = torch.zeros_like(wd, dtype=torch.bool)
+    tie[:, 1:] |= near
+    tie[:, :-1] |= near
+    assert not bool(((got.ids.cpu() != want.ids) & ~tie).any())
