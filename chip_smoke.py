@@ -51,12 +51,33 @@ Phases, each of which fails the run by raising:
      queries) are recorded and, after it, held against the plain
      version: K3 within the distance tolerance, K5 and lex_select
      bit-equal;
-  8. kernels at the main path's shapes: each kernel against its plain
+  8. sharded engine: the main path's data range-sharded into 4 DSTree
+     shards (leaf_cap 256, one global histogram), built on the card and
+     spilled as f32 stores with 2 replicas under
+     build/chip_smoke_stores/engine/ (deleted after). Resident rows
+     (exact, eps, delta-eps, ng, exact with sync_bsf, exact with
+     share_gathers: exact rows MAP 1.000 and brute force's ids up to
+     ties; sync_bsf the unsynced answer with no more leaves visited);
+     the spill through open_spill, shard after shard (rows equal to
+     the resident rows in ids, distances, leaves and rows); fault rows
+     (the owner copy of a shard killed: failover, the same answer; a
+     shard lost on every copy: degraded, the exact answer over the
+     surviving rows, effective_delta < 1; an owner stalled past its
+     deadline: failover, the same answer; every shard lost: ShardLost);
+     one pq spill meeting the epsilon bound with a MAP no lower than the
+     single pq store's of phase 6. A row with no injected fault must see
+     no retry, failover or lost shard. Launch counts are zeroed before
+     and read after; every kernel but K2 must have run. Each kernel's
+     inputs on this path (the first call at each shape, in each build
+     and row) are held against the plain version after it: K1 and K4
+     and K3 (the survivors' brute force) within their tolerances, K5,
+     K6 and lex_select bit-equal;
+  9. kernels at the main path's shapes: each kernel against its plain
      version, timed with CUDA events beside the plain version, one
      PyTorch library call where one computes the same function, and the
      least time the card could take (bound_ms). ``launches`` counts the
      in-memory path for K1-K4 and lex_select, the out-of-core path for K5
-     and K6; ``launches_by_path`` gives all three paths. A line splits K4
+     and K6; ``launches_by_path`` gives every path's. A line splits K4
      and K6 into their score and select passes, and K3 and lex_select at
      the HNSW build's block, lex_select at kk = 1200 and 4096 and K1 at
      D = 64 are timed too.
@@ -75,6 +96,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -611,6 +633,21 @@ class PathInputs:
                 fn = self.wrappers[name]
                 if name == "l2":
                     dist_close(torch, fn(*args), ref.ref_l2(*args), where)
+                elif name == "box_mindist":
+                    close(torch, fn(*args), ref.ref_box_mindist(*args), where)
+                elif name == "paa":
+                    if not torch.equal(fn(*args), ref.ref_paa(*args)):
+                        raise AssertionError(f"{where}: not bit-exact")
+                elif name == "coop_score_select":
+                    q, rows, _, ids, _ = args
+                    select_close(torch, fn(*args),
+                                 ref.ref_coop_score_select(*args), q, rows,
+                                 ids, where)
+                elif name == "pq_adc_select":
+                    got, want = fn(*args), ref.ref_pq_adc_select(*args)
+                    if not (torch.equal(got[0], want[0])
+                            and torch.equal(got[1], want[1])):
+                        raise AssertionError(f"{where}: not bit-exact")
                 elif name == "pq_adc_batch":
                     if not torch.equal(fn(*args), ref.ref_pq_adc_batch(*args)):
                         raise AssertionError(f"{where}: not bit-exact")
@@ -1030,6 +1067,250 @@ def phase_ooc(torch, S, G, index, q, truth, mem, k, root: Path):
     return table, saved, pq_in
 
 
+ENGINE_SHARDS = 4
+
+
+def print_engine_table(rows) -> None:
+    hdr = (f"{'mode':10s} {'guarantee':14s} {'MAP':>6s} {'%data':>7s} "
+           f"{'it max':>6s} {'it sum':>6s} {'ms':>9s} {'read MB':>9s} "
+           f"{'hit':>5s} {'fo':>3s} {'degr':>5s} {'eff delta':>10s}")
+    print(hdr)
+    print("-" * len(hdr))
+    for r in rows:
+        print(f"{r['mode']:10s} {r['guarantee']:14s} {r['map']:6.3f} "
+              f"{r['pct_data']:6.2f}% {r['iters_max']:6d} "
+              f"{r['iters_sum']:6d} {r['ms']:9.1f} "
+              f"{r['bytes_read'] / 1e6:9.1f} {r['hit_rate']:5.3f} "
+              f"{r['failovers']:3d} {str(r['degraded']):>5s} "
+              f"{r['effective_delta']:10.3g}")
+
+
+def phase_engine(torch, S, G, ref, data, q, truth, k, dist64, pq_map,
+                 root: Path, path):
+    """The sharded engine on the card: the main path's data range-sharded
+    into 4 DSTree shards (leaf_cap 256), kept resident and spilled as f32
+    stores with 2 replicas under ``root``; resident rows, the spilled
+    rows served through open_spill, fault rows (owner kill, shard lost
+    past its replicas, slow owner past its deadline, every shard lost),
+    then one pq spill, whose MAP must reach ``pq_map`` (the single-index
+    pq store's at the same guarantee). ``path`` (PathInputs) records the
+    kernels' inputs through each build and row and holds them against
+    the plain versions after it. A row with no injected fault must see
+    no retry, failover or lost shard. Returns (table rows, build seconds
+    by spill, the kernel inputs held)."""
+    from repro_torch.core.engine import DistributedEngine
+    from repro_torch.core.metrics import workload_metrics
+    from repro_torch.core.spec import IndexSpec, StoreSpec
+    from repro_torch.fault import FaultInjector
+    from repro_torch.serve.fault import RetryPolicy, ShardLost
+
+    n_series = data.shape[0]
+    ispec = IndexSpec("dstree", leaf_cap=256)
+    table, builds, got, held = [], {}, {}, []
+
+    def run(mode, gname, eng, g, **kw):
+        with path:
+            t0 = time.perf_counter()
+            res = eng.query(q, k, g, **kw)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        held.extend(path.check(f"engine {mode} {gname}"))
+        m = workload_metrics(res.ids, res.dists, truth.ids, truth.dists)
+        st = res.stats
+        row = dict(mode=mode, guarantee=gname, map=m["map"],
+                   pct_data=100 * float(res.rows_scanned.float().mean())
+                   / n_series,
+                   iters_max=max(res.iterations),
+                   iters_sum=sum(res.iterations), ms=sec * 1e3,
+                   bytes_read=st.bytes_read if st else 0,
+                   hit_rate=st.hit_rate if st else 0.0,
+                   failovers=st.failovers if st else 0,
+                   degraded=st.degraded if st else False,
+                   effective_delta=st.effective_delta if st else g.delta)
+        table.append(row)
+        print(f"  engine {mode} {gname}: {sec:.2f} s, iterations "
+              f"{res.iterations}")
+        if res.dists.shape != (q.shape[0], k) or not bool(
+                torch.isfinite(res.dists[:, 0]).all()):
+            raise AssertionError(f"engine {mode} {gname}: wrong shape or no "
+                                 "finite nearest neighbour")
+        if st is not None and "fault" not in kw.get("ooc_opts", {}) and (
+                st.retries or st.failovers or st.shards_lost or st.degraded
+                or 0 in res.iterations):
+            raise AssertionError(
+                f"engine {mode} {gname}: a shard failed with no fault "
+                f"injected (retries {st.retries}, failovers {st.failovers}"
+                f", lost {st.shards_lost}, iterations {res.iterations})")
+        got[(mode, gname)] = res
+        return res, row
+
+    def exact_row(what, res, row):
+        if f"{row['map']:.3f}" != "1.000":
+            raise AssertionError(f"{what}: MAP {row['map']} on an exact row")
+        swaps = ties_only(torch, res.ids, truth.ids, dist64, what)
+        print(f"  {what}: ids are brute force's ({swaps} swaps of ties)")
+
+    def same(what, a, b, fields=("ids", "dists", "leaves_visited",
+                                 "rows_scanned"), tie_order=False):
+        """Fields equal. With ``tie_order``, ids at bit-equal distances
+        may come in another order: the resident merge keeps the shards'
+        order among equal distances, the out-of-core fold orders them by
+        id (as the reference's two merges do)."""
+        for f in fields:
+            x, y = getattr(a, f), getattr(b, f)
+            if f == "ids" and tie_order and torch.equal(a.dists, b.dists):
+                x = x.gather(1, ref.lex_order(a.dists, x))
+                y = y.gather(1, ref.lex_order(b.dists, y))
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: {f} differ")
+        if tie_order:
+            print(f"  {what}: equal ({int((a.ids != b.ids).sum())} ids "
+                  "in another order among equal distances)")
+
+    f32_dir = root / "f32"
+    with path:
+        t0 = time.perf_counter()
+        eng = DistributedEngine(shards=ENGINE_SHARDS, method="dstree").build(
+            data, index=ispec, store=StoreSpec(spill_dir=str(f32_dir),
+                                               replicas=2))
+        torch.cuda.synchronize()
+        builds["resident+f32x2"] = time.perf_counter() - t0
+    held.extend(path.check("engine build"))
+    print(f"  engine built in {builds['resident+f32x2']:.1f} s: "
+          f"{ENGINE_SHARDS} shards of "
+          f"{[sh.num_leaves for sh in eng.resident]} leaves (padded), "
+          f"f32 spill with 2 replicas under {f32_dir}")
+
+    resident = {"exact": (G.exact(), {}), "eps=1": (G.epsilon(1.0), {}),
+                "d=.99,eps=1": (G.delta_epsilon(0.99, 1.0), {}),
+                "ng(nprobe=4)": (G.ng(4), {}),
+                "exact+sync": (G.exact(), dict(sync_bsf=True)),
+                "exact+share": (G.exact(), dict(share_gathers=True))}
+    for gname, (g, kw) in resident.items():
+        res, row = run("resident", gname, eng, g, **kw)
+        if gname.startswith("exact"):
+            exact_row(f"engine resident {gname}", res, row)
+    plain, sync = got[("resident", "exact")], got[("resident", "exact+sync")]
+    same("engine resident exact+sync vs exact", sync, plain,
+         ("ids", "dists"))
+    if not bool((sync.leaves_visited <= plain.leaves_visited).all()):
+        raise AssertionError("engine exact+sync visits more leaves than "
+                             "exact")
+    print(f"  sync_bsf: {int(sync.leaves_visited.sum())} leaves visited "
+          f"against {int(plain.leaves_visited.sum())}")
+    del eng
+
+    spilled = DistributedEngine.open_spill(
+        StoreSpec(spill_dir=str(f32_dir), keep_resident=False))
+    try:
+        for gname, g in (("exact", G.exact()), ("eps=1", G.epsilon(1.0)),
+                         ("ng(nprobe=4)", G.ng(4))):
+            res, row = run("spill f32", gname, spilled, g)
+            same(f"engine spill f32 {gname} vs resident", res,
+                 got[("resident", gname)], tie_order=True)
+            if gname == "exact":
+                exact_row("engine spill f32 exact", res, row)
+        fast = dict(max_attempts=2, backoff_base_s=0.0)
+
+        # the owner copy of shard 1 down: the replica answers in full
+        inj = FaultInjector().kill_shard(1, replica=0)
+        res, row = run("owner kill", "ng(nprobe=4)", spilled, G.ng(4),
+                       ooc_opts=dict(fault=inj, retry=RetryPolicy(**fast)))
+        same("engine owner kill", res, got[("spill f32", "ng(nprobe=4)")],
+             ("ids", "dists"))
+        if res.stats.failovers != 1 or res.stats.degraded:
+            raise AssertionError(f"engine owner kill: failovers "
+                                 f"{res.stats.failovers}, degraded "
+                                 f"{res.stats.degraded}")
+
+        # shard 2 down on every copy: the exact answer over the other
+        # three quarters, with an honest delta
+        inj = FaultInjector().kill_shard(2)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res, row = run("shard lost", "exact", spilled, G.exact(),
+                           ooc_opts=dict(fault=inj,
+                                         retry=RetryPolicy(**fast)))
+        if not any("lost past retries" in str(w.message) for w in caught):
+            raise AssertionError("engine shard lost: no degradation warning")
+        st = res.stats
+        if not st.degraded or st.shards_lost != 1 \
+                or not st.effective_delta < 1.0:
+            raise AssertionError(f"engine shard lost: degraded {st.degraded}"
+                                 f", lost {st.shards_lost}, effective_delta "
+                                 f"{st.effective_delta}")
+        bounds = np.linspace(0, n_series, ENGINE_SHARDS + 1).astype(np.int64)
+        keep = np.ones(n_series, bool)
+        keep[bounds[2]:bounds[3]] = False
+        alive = torch.as_tensor(np.flatnonzero(keep),
+                                device=truth.ids.device)
+        with path:
+            bf = S.brute_force(q, data[keep], k)
+        held.extend(path.check("engine survivors' brute force"))
+        what = "engine shard lost vs brute force over the survivors"
+        dist_close(torch, res.dists, bf.dists, what)
+        swaps = ties_only(torch, res.ids, alive[bf.ids.long()].to(
+            torch.int32), dist64, what)
+        print(f"  {what}: equal ({swaps} swaps of ties), effective_delta "
+              f"{st.effective_delta:.6g}")
+
+        # the owner of shard 0 stalls past its deadline: failover
+        deadline = 2.0
+        inj = FaultInjector().delay("gather", shard=0, replica=0,
+                                    seconds=deadline + 0.5, times=1)
+        res, row = run("slow owner", "ng(nprobe=4)", spilled, G.ng(4),
+                       ooc_opts=dict(fault=inj, retry=RetryPolicy(
+                           attempt_deadline_s=deadline, **fast)))
+        same("engine slow owner", res, got[("spill f32", "ng(nprobe=4)")],
+             ("ids", "dists"))
+        if res.stats.failovers != 1:
+            raise AssertionError(f"engine slow owner: failovers "
+                                 f"{res.stats.failovers}")
+
+        inj = FaultInjector()
+        for si in range(ENGINE_SHARDS):
+            inj.kill_shard(si)
+        try:
+            spilled.query(q, k, G.exact(), ooc_opts=dict(
+                fault=inj, retry=RetryPolicy(**fast)))
+        except ShardLost as e:
+            print(f"  engine every shard lost: ShardLost ({e})")
+        else:
+            raise AssertionError("engine every shard lost: no ShardLost")
+    finally:
+        spilled.close()
+    shutil.rmtree(f32_dir)
+
+    pq_dir = root / "pq"
+    with path:
+        t0 = time.perf_counter()
+        eng = DistributedEngine(shards=ENGINE_SHARDS, method="dstree").build(
+            data, index=ispec, store=StoreSpec(spill_dir=str(pq_dir),
+                                               codec="pq",
+                                               keep_resident=False))
+        torch.cuda.synchronize()
+        builds["pq"] = time.perf_counter() - t0
+    held.extend(path.check("engine pq build"))
+    print(f"  engine pq spill built in {builds['pq']:.1f} s")
+    try:
+        g = G.epsilon(1.0)
+        res, row = run("spill pq", "eps=1+share", eng, g, share_gathers=True)
+        ok = res.dists <= (1 + g.epsilon) * truth.dists * (1 + 1e-4) + 1e-4
+        if not bool(ok.all()):
+            raise AssertionError(f"engine spill pq: the epsilon bound holds "
+                                 f"for {float(ok.float().mean()):.3f} of the "
+                                 "ranks")
+        if row["map"] < pq_map:
+            raise AssertionError(f"engine spill pq: MAP {row['map']:.4f} "
+                                 f"below the single pq store's {pq_map:.4f}")
+        print(f"  engine spill pq: MAP {row['map']:.4f} against the single "
+              f"pq store's {pq_map:.4f}")
+    finally:
+        eng.close()
+    shutil.rmtree(pq_dir)
+    return table, builds, held
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-series", type=int, default=1 << 20)
@@ -1177,13 +1458,44 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the baselines "
                              f"path: {missing}")
 
+    # the sharded engine on the main path's data, with its own counts
+    eng_root = root / "engine"
+    shutil.rmtree(eng_root, ignore_errors=True)
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pq_map = next(r["map"] for r in ooc_table
+                  if (r["codec"], r["guarantee"]) == ("pq", "eps=1+share"))
+    try:
+        eng_table, eng_builds, held = phase_engine(
+            torch, S, G, ref, data, q, truth, k, dist64, pq_map, eng_root,
+            PathInputs(torch, ops, ref, wrappers))
+    finally:
+        shutil.rmtree(eng_root, ignore_errors=True)
+    eng_counts = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"sharded engine, {ENGINE_SHARDS} DSTree shards at N = {n_series} "
+          f"({time.perf_counter() - t0:.1f} s; builds "
+          + ", ".join(f"{n} {s:.1f} s" for n, s in eng_builds.items())
+          + "):")
+    print_engine_table(eng_table)
+    print(f"kernel inputs of the engine path held against the plain "
+          f"versions ({len(held)}): " + "; ".join(
+              f"{key[0]} {key[1:]}" for key in held))
+    print(f"launches on the engine path: {eng_counts}")
+    missing = [name for name, c in eng_counts.items()
+               if c == 0 and name != "paa"]
+    if missing:
+        raise AssertionError(f"kernels not launched on the engine path: "
+                             f"{missing}")
+
     rows = kernel_rows(torch, ops, ref, build, data_t, q_t, built["isax2+"],
                        built["va+file"], k, counts, pq_in)
     for r in rows:
         r["launches_by_path"] = {
             "in_memory": mem_counts[r["name"]],
             "out_of_core": ooc_counts[r["name"]],
-            "baselines": base_counts[r["name"]]}
+            "baselines": base_counts[r["name"]],
+            "engine": eng_counts[r["name"]]}
     shapes = shape_rows(torch, ops, ref, data_t, q_t)
     for r in shapes:
         print(f"  {r['name']} at {r['shape']}: {r['ms']:.4f} ms, bound "

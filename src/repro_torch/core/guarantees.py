@@ -12,6 +12,8 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
+
 
 class Guarantee(NamedTuple):
     delta: float = 1.0
@@ -56,3 +58,41 @@ def delta_epsilon(delta: float, eps: float = 0.0) -> Guarantee:
 def ng(nprobe: int = 1) -> Guarantee:
     """The paper's ng-approximate: visit nprobe leaves, keep the best."""
     return Guarantee(nprobe=nprobe).validate()
+
+
+def effective_delta_after_loss(hist, kth_dists, n_lost: int, *,
+                               delta: float = 1.0,
+                               epsilon: float = 0.0) -> float:
+    """The honest delta of an answer computed without ``n_lost`` rows.
+
+    Under the independence model that defines r_delta (distances to the
+    query are draws from the global F of ``hist``), the answer stays
+    epsilon-correct iff no unseen row lies within d_k / (1 + epsilon) of
+    the query; each unseen row misses that ball with probability
+    1 - F(d_k / (1 + epsilon)), so per lane
+
+        P[answer still epsilon-correct] = (1 - F(d_k/(1+eps)))**n_lost
+
+    and the batch's delta is the prior ``delta`` times the worst lane's
+    survival. ``kth_dists`` are the lanes' kth-best distances of the
+    surviving fold (Euclidean, like the histogram's edges); an infinite
+    kth (fewer than k survivors) gives 0. F is evaluated in f32 as the
+    reference's ``jnp.interp`` does, the rest in float64."""
+    if n_lost <= 0:
+        return float(delta)
+    import torch
+
+    from .histogram import f_of
+
+    if isinstance(kth_dists, torch.Tensor):
+        kth_dists = kth_dists.detach().cpu().double().numpy()
+    d = np.asarray(kth_dists, np.float64).reshape(-1)
+    d = d / (1.0 + float(epsilon))
+    finite = np.isfinite(d)
+    r = torch.as_tensor(np.where(finite, d, 0.0).astype(np.float32),
+                        device=hist.edges.device)
+    # F at the shrunk kth radius; an infinite radius -> F = 1 -> 0
+    p_hit = np.where(finite, f_of(hist, r).cpu().numpy().astype(np.float64),
+                     1.0)
+    survival = np.power(np.clip(1.0 - p_hit, 0.0, 1.0), float(n_lost))
+    return float(np.clip(float(delta) * survival.min(), 0.0, 1.0))

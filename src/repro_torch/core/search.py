@@ -16,10 +16,12 @@
      reads two flags from the device per iteration (does any lane need a
      frontier refill, is any lane still active).
 
-:func:`refine_loop` is that loop over a leaf source (core.refine): the
-index's own rows for :func:`search`, or a store on disk streamed through
-a device leaf cache for :func:`search_ooc` (store/ooc.py), whose source
-also reads each window's leaf ids to the host to fill the cache.
+:class:`Refinement` is that loop over a leaf source (core.refine), one
+iteration a step, and :func:`refine_loop` runs it to its end: over the
+index's own rows for :func:`search`, or over a store on disk streamed
+through a device leaf cache for :func:`search_ooc` (store/ooc.py), whose
+source also reads each window's leaf ids to the host to fill the cache.
+The engine (core/engine.py) steps several in lockstep.
 
 With nprobe unset this is exact for (delta=1, eps=0), epsilon-approximate
 for (1, eps) and delta-epsilon otherwise. All comparisons run on squared
@@ -52,14 +54,18 @@ class SearchResult(NamedTuple):
     iterations: int               # refinement loop iterations
 
 
-def refine_loop(src, queries: torch.Tensor, k: int, *, delta: float = 1.0,
-                epsilon: float = 0.0, nprobe: Optional[int] = None,
-                visit_batch: int = 1, share_gathers: bool = False,
-                frontier: Optional[int] = None,
-                stats: Optional[OocStats] = None) -> SearchResult:
+class Refinement:
     """Algorithm 2 over queries [B, n] already on the device of the leaf
-    source ``src`` (core.refine.LeafSource): the one loop of the resident
-    and the out-of-core searches.
+    source ``src`` (core.refine.LeafSource), one iteration at a time: the
+    one loop of the resident and the out-of-core searches.
+
+    Construction runs the filter and sets the loop's state; each
+    :meth:`step` is one iteration, and :attr:`go` says whether any lane
+    is still active; :meth:`finish` returns the result. A step is
+    :meth:`advance` (gather, score, move the frontier) then
+    :meth:`settle` (the stopping test against a best-so-far), so the
+    engine can step shards in lockstep and settle each against the
+    kth-best over all of them.
 
     share_gathers: every iteration's gathered rows are scored against
     all lanes, not only the lane that asked for them. Extra candidates
@@ -70,111 +76,169 @@ def refine_loop(src, queries: torch.Tensor, k: int, *, delta: float = 1.0,
     same visit order.
 
     stats: when given, the loop's telemetry (iterations, refills, visit
-    totals, stop attribution and slack) is written into it; this costs a
-    few small device operations per iteration, so the resident search
-    passes None. The returned result is the finalized one and
-    ``stats.bytes_read_rerank`` holds what finalize read."""
-    b = queries.shape[0]
-    dev = queries.device
-    index = src.resident
-    L = index.num_leaves
-    v = visit_batch
-    depth = src.depth
+    totals, stop attribution and slack) is written into it by
+    :meth:`finish`; this costs a few small device operations per
+    iteration, so the resident search passes None.
 
-    ctx = src.query_ctx(queries)
-    lb_sq = refine.leaf_lower_bounds(index, queries)  # [B, L]
+    fault: the injection hook (duck-typed; serve.fault.FaultContext in
+    the engine): ``fault.check("gather")`` runs before every gather and
+    ``fault.check("score")`` before every scoring step, where injected
+    faults fire and attempt deadlines are polled."""
 
-    # the window covers this iteration's visits, the next lower bound and
-    # the prefetcher's lookahead of ``depth`` windows
-    la = (1 + depth) * v
-    if frontier is None:
-        F = min(max(refine.default_frontier(L, v), la + v), L)
-    else:
-        F = min(max(int(frontier), min(la + v, L) if depth else v + 1), L)
-    lookahead = min(la, F)
-    eps_mult = torch.tensor((1.0 + epsilon) ** 2, dtype=torch.float32,
-                            device=dev)
-    rd = r_delta(index.hist, delta, index.n_total).to(dev)
-    rd_sq = rd * rd
-    max_rank = L if nprobe is None else min(nprobe, L)
+    def __init__(self, src, queries: torch.Tensor, k: int, *,
+                 delta: float = 1.0, epsilon: float = 0.0,
+                 nprobe: Optional[int] = None, visit_batch: int = 1,
+                 share_gathers: bool = False,
+                 frontier: Optional[int] = None,
+                 stats: Optional[OocStats] = None, fault=None):
+        b = queries.shape[0]
+        dev = queries.device
+        index = src.resident
+        L = index.num_leaves
+        v = visit_batch
+        depth = src.depth
+        self.src, self.k, self.v, self.L = src, k, v, L
+        self.share = share_gathers
+        self.stats, self.fault = stats, fault
 
-    kk = src.track_width(k)
-    rank = torch.zeros(b, dtype=torch.long, device=dev)
-    top_d = torch.full((b, kk), refine.INF, device=dev)
-    top_i = torch.full((b, kk), -1, dtype=torch.int32, device=dev)
-    active = torch.ones(b, dtype=torch.bool, device=dev)
-    leaves = torch.zeros(b, dtype=torch.int32, device=dev)
-    rows = torch.zeros(b, dtype=torch.int32, device=dev)
-    fr = refine.frontier_init(b, F, dev)
-    steps = torch.arange(v, device=dev)[None, :]
-    if stats is not None:
-        # refills, then (delta, epsilon, exhausted) stops, then the slack
-        # sums at delta and epsilon stops
-        counts = torch.zeros(4, dtype=torch.long, device=dev)
-        slack = torch.zeros(2, dtype=torch.float64, device=dev)
+        self.ctx = src.query_ctx(queries)
+        self.lb_sq = refine.leaf_lower_bounds(index, queries)  # [B, L]
 
-    iterations = 0
-    go = True
-    while go:
-        iterations += 1
+        # the window covers this iteration's visits, the next lower bound
+        # and the prefetcher's lookahead of ``depth`` windows
+        la = (1 + depth) * v
+        if frontier is None:
+            F = min(max(refine.default_frontier(L, v), la + v), L)
+        else:
+            F = min(max(int(frontier), min(la + v, L) if depth else v + 1),
+                    L)
+        self.lookahead = min(la, F)
+        self.eps_mult = torch.tensor((1.0 + epsilon) ** 2,
+                                     dtype=torch.float32, device=dev)
+        rd = r_delta(index.hist, delta, index.n_total).to(dev)
+        self.rd_sq = rd * rd
+        self.max_rank = L if nprobe is None else min(nprobe, L)
+
+        kk = src.track_width(k)
+        self.rank = torch.zeros(b, dtype=torch.long, device=dev)
+        self.top_d = torch.full((b, kk), refine.INF, device=dev)
+        self.top_i = torch.full((b, kk), -1, dtype=torch.int32, device=dev)
+        self.active = torch.ones(b, dtype=torch.bool, device=dev)
+        self.leaves = torch.zeros(b, dtype=torch.int32, device=dev)
+        self.rows = torch.zeros(b, dtype=torch.int32, device=dev)
+        self.fr = refine.frontier_init(b, F, dev)
+        self.steps = torch.arange(v, device=dev)[None, :]
         if stats is not None:
-            counts[0] += refine.refill_need(fr, active, lookahead).sum()
-        fr, leaf = refine.frontier_tick(fr, lb_sq, active, v=v,
-                                        lookahead=lookahead)
-        in_range = (rank[:, None] + steps) < max_rank
+            # refills, then (delta, epsilon, exhausted) stops, then the
+            # slack sums at delta and epsilon stops
+            self.counts = torch.zeros(4, dtype=torch.long, device=dev)
+            self.slack = torch.zeros(2, dtype=torch.float64, device=dev)
+        self.iterations = 0
+        self.go = True
+        self._next_lb = self._exhausted = None
+
+    @property
+    def bsf(self) -> torch.Tensor:
+        """[B] each lane's kth-best squared distance so far."""
+        return self.top_d[:, self.k - 1]
+
+    def advance(self) -> None:
+        """The first half of an iteration: every active lane gathers its
+        next window, scores it into its top-k, and the frontier moves."""
+        src, v, active = self.src, self.v, self.active
+        self.iterations += 1
+        if self.stats is not None:
+            self.counts[0] += refine.refill_need(self.fr, active,
+                                                 self.lookahead).sum()
+        fr, leaf = refine.frontier_tick(self.fr, self.lb_sq, active, v=v,
+                                        lookahead=self.lookahead)
+        in_range = (self.rank[:, None] + self.steps) < self.max_rank
         ok = in_range & active[:, None]
+        if self.fault is not None:
+            self.fault.check("gather")
         g = src.gather(leaf, ok)
-        if depth:
+        if src.depth:
             # stage the next ``depth`` windows while this one is scored
             windows = []
-            for d in range(1, depth + 1):
-                base = torch.clamp(rank + d * v, max=max_rank)
-                ok_d = ((base[:, None] + steps) < max_rank) & active[:, None]
+            for d in range(1, src.depth + 1):
+                base = torch.clamp(self.rank + d * v, max=self.max_rank)
+                ok_d = (((base[:, None] + self.steps) < self.max_rank)
+                        & active[:, None])
                 windows.append((refine.frontier_window(fr, d * v, v), ok_d))
             src.prefetch(windows)
+        if self.fault is not None:
+            self.fault.check("score")
         # with share_gathers, copies of a leaf pooled twice this iteration
         # are masked so the pool's ids stay distinct; copies across
         # iterations are merged away by id
-        top_d, top_i = src.score(
-            ctx, g,
-            refine.coop_mask(leaf, ok, g.valid) if share_gathers
-            else g.valid, top_d, top_i, share=share_gathers)
-        leaves += torch.where(active, in_range.sum(1, dtype=torch.int32), 0)
-        rows += torch.where(active, g.valid.sum(1, dtype=torch.int32), 0)
+        self.top_d, self.top_i = src.score(
+            self.ctx, g,
+            refine.coop_mask(leaf, ok, g.valid) if self.share
+            else g.valid, self.top_d, self.top_i, share=self.share)
+        self.leaves += torch.where(active, in_range.sum(1, dtype=torch.int32),
+                                   0)
+        self.rows += torch.where(active, g.valid.sum(1, dtype=torch.int32), 0)
 
-        fr, next_lb = refine.frontier_advance(fr, active, v=v)
-        rank = torch.clamp(rank + v, max=max_rank)
-        exhausted = rank >= max_rank
-        bsf = top_d[:, k - 1]
-        stop = refine.stop_mask(next_lb, exhausted, bsf, eps_mult, rd_sq)
+        self.fr, self._next_lb = refine.frontier_advance(fr, active, v=v)
+        self.rank = torch.clamp(self.rank + v, max=self.max_rank)
+        self._exhausted = self.rank >= self.max_rank
+
+    def settle(self, bsf: torch.Tensor) -> bool:
+        """The second half: stop the lanes that meet a predicate against
+        ``bsf`` [B] (:attr:`bsf`, or a kth-best over several shards, no
+        larger). Returns :attr:`go`."""
+        next_lb = self._next_lb
+        stop = refine.stop_mask(next_lb, self._exhausted, bsf, self.eps_mult,
+                                self.rd_sq)
+        if self.stats is not None:
+            _attribute_stops(self.active & stop, next_lb, bsf, self.eps_mult,
+                             self.rd_sq, self.counts, self.slack)
+        self.active = self.active & ~stop
+        self.go = bool(self.active.any())
+        return self.go
+
+    def step(self) -> bool:
+        self.advance()
+        return self.settle(self.bsf)
+
+    def finish(self) -> SearchResult:
+        """The finalized result (``stats.bytes_read_rerank`` holds what
+        the source's finalize read)."""
+        b = self.top_d.shape[0]
+        top_d, top_i, extra = self.src.finalize(self.ctx, self.top_d,
+                                                self.top_i, self.k)
+        stats, L = self.stats, self.L
         if stats is not None:
-            _attribute_stops(active & stop, next_lb, bsf, eps_mult, rd_sq,
-                             counts, slack)
-        active = active & ~stop
-        go = bool(active.any())
+            c = self.counts.tolist()
+            sl = self.slack.tolist()
+            lv = int(self.leaves.sum())
+            stats.iterations = self.iterations
+            stats.frontier_refills = c[0]
+            stats.leaves_visited = lv
+            stats.rows_scanned = int(self.rows.sum())
+            stats.pruning_ratio = 1.0 - lv / (b * L) if b * L else 0.0
+            stats.stop_delta, stats.stop_epsilon, stats.stop_exhausted = c[1:]
+            stats.delta_slack = sl[0] / c[1] if c[1] else 0.0
+            stats.eps_slack = sl[1] / c[2] if c[2] else 0.0
+            stats.bytes_read_rerank = extra
+        return SearchResult(
+            dists=torch.sqrt(top_d),
+            ids=top_i,
+            leaves_visited=self.leaves,
+            rows_scanned=self.rows,
+            lb_computed=L,
+            iterations=self.iterations,
+        )
 
-    top_d, top_i, extra = src.finalize(ctx, top_d, top_i, k)
-    if stats is not None:
-        c = counts.tolist()
-        sl = slack.tolist()
-        lv = int(leaves.sum())
-        stats.iterations = iterations
-        stats.frontier_refills = c[0]
-        stats.leaves_visited = lv
-        stats.rows_scanned = int(rows.sum())
-        stats.pruning_ratio = 1.0 - lv / (b * L) if b * L else 0.0
-        stats.stop_delta, stats.stop_epsilon, stats.stop_exhausted = c[1:]
-        stats.delta_slack = sl[0] / c[1] if c[1] else 0.0
-        stats.eps_slack = sl[1] / c[2] if c[2] else 0.0
-        stats.bytes_read_rerank = extra
-    return SearchResult(
-        dists=torch.sqrt(top_d),
-        ids=top_i,
-        leaves_visited=leaves,
-        rows_scanned=rows,
-        lb_computed=L,
-        iterations=iterations,
-    )
+
+def refine_loop(src, queries: torch.Tensor, k: int, **kw) -> SearchResult:
+    """Algorithm 2 run to its end over one leaf source: a
+    :class:`Refinement` stepped until no lane is active (the keywords
+    are its own)."""
+    r = Refinement(src, queries, k, **kw)
+    while r.go:
+        r.step()
+    return r.finish()
 
 
 def _attribute_stops(newly, next_lb, bsf, eps_mult, rd_sq, counts,

@@ -42,7 +42,7 @@ def box_mindist(q: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
         build.check(lib.box_mindist_f32(
             q.data_ptr(), lo.data_ptr(), hi.data_ptr(), weights.data_ptr(),
             out.data_ptr(), b, n_boxes, d, build.stream(q)), "box_mindist")
-    box_mindist.launches += 1
+    build.count_launch(box_mindist)
     return out
 
 

@@ -115,6 +115,17 @@ def build_all() -> dict:
     return {n: p.with_suffix(".log").read_text() for n, p in paths.items()}
 
 
+# guards every wrapper's ``launches`` count: the engine's shard owners
+# launch from several threads, and ``+= 1`` on an attribute is not atomic
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's ``launches`` count."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:

@@ -36,7 +36,7 @@ def l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         build.check(fn(qf.data_ptr(), x.data_ptr(), out.data_ptr(), b, m, n,
                        build.stream(x)), "l2")
-    l2.launches += 1
+    build.count_launch(l2)
     return out
 
 

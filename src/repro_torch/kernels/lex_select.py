@@ -53,7 +53,7 @@ def lex_select(d: torch.Tensor, ids: torch.Tensor, kk: int) -> tuple:
             d.data_ptr(), ids.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
             b, r, kk, None if scratch is None else scratch.data_ptr(),
             build.stream(d)), "lex_select")
-    lex_select.launches += 1
+    build.count_launch(lex_select)
     return out_d, out_i
 
 

@@ -31,7 +31,7 @@ def paa(x: torch.Tensor, n_segments: int) -> torch.Tensor:
     with torch.cuda.device(x.device):
         build.check(lib.paa_f32(x.data_ptr(), out.data_ptr(), n_rows, n,
                                 n_segments, inv, build.stream(x)), "paa")
-    paa.launches += 1
+    build.count_launch(paa)
     return out
 
 

@@ -44,7 +44,7 @@ def pq_adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
         build.check(lib.pq_adc_u8(codes.data_ptr(), lf.data_ptr(),
                                   out.data_ptr(), b, rows, m, k, int(shared),
                                   build.stream(codes)), "pq_adc")
-    pq_adc_batch.launches += 1
+    build.count_launch(pq_adc_batch)
     return out
 
 

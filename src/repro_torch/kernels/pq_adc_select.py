@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from . import ref
+from . import build, ref
 from .lex_select import lex_select
 from .pq_adc import pq_adc_batch
 
@@ -36,7 +36,7 @@ def pq_adc_select(codes: torch.Tensor, luts: torch.Tensor,
         raise ValueError(f"pq_adc_select shapes disagree: codes "
                          f"{codes.shape}, ids {ids.shape}")
     scores = pq_adc_batch(codes, luts)
-    pq_adc_select.launches += 1
+    build.count_launch(pq_adc_select)
     return lex_select(scores, ids, kk)
 
 

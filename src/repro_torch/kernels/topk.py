@@ -52,7 +52,7 @@ def coop_score_select(q: torch.Tensor, rows: torch.Tensor,
         build.check(fn(qf.data_ptr(), rows.data_ptr(), row_norms.data_ptr(),
                        scores.data_ptr(), b, r, n, build.stream(q)),
                     "coop_score_select")
-    coop_score_select.launches += 1
+    build.count_launch(coop_score_select)
     return lex_select(scores, ids, kk)
 
 

@@ -191,7 +191,7 @@ def search_ooc(store: LeafStore, queries, k: int, g: Guarantee = EXACT, *,
                cache_leaves: Optional[int] = None, prefetch: bool = True,
                share_gathers: bool = False, rerank: int = 4,
                frontier: Optional[int] = None,
-               prefetch_depth: int = 1) -> OocResult:
+               prefetch_depth: int = 1, fault=None) -> OocResult:
     """k-NN over a store opened with ``load_index(resident="summaries")``
     under the guarantee ``g``, on the store's device.
 
@@ -204,7 +204,11 @@ def search_ooc(store: LeafStore, queries, k: int, g: Guarantee = EXACT, *,
     lane. For a pq store, ``rerank * k`` candidates per lane go through
     the ADC loop and are re-ranked exactly at the end. ``frontier`` is
     the visit-order window width (None: the default, widened to the
-    prefetch lookahead); any width gives the same visit order."""
+    prefetch lookahead); any width gives the same visit order. ``fault``
+    is the injection hook (serve.fault.FaultContext), checked before
+    every gather and score: an exception it raises leaves the cache
+    consistent (no gather is half done) and its prefetcher running, so
+    the next search on the same cache starts clean."""
     g = g.validate()
     res = store.resident
     q = torch.as_tensor(queries, device=store.device)
@@ -242,7 +246,7 @@ def search_ooc(store: LeafStore, queries, k: int, g: Guarantee = EXACT, *,
         result = refine_loop(src, q, k, delta=g.delta, epsilon=g.epsilon,
                              nprobe=g.nprobe, visit_batch=v,
                              share_gathers=share_gathers, frontier=frontier,
-                             stats=stats)
+                             stats=stats, fault=fault)
     finally:
         if own_prefetcher is not None:
             own_prefetcher.close()

@@ -270,3 +270,68 @@ def test_baseline_on_the_card_matches_the_cpu(cuda, name):
     tie[:, 1:] |= near
     tie[:, :-1] |= near
     assert not bool(((got.ids.cpu() != want.ids) & ~tie).any())
+
+
+def _ties_only(got, want, data, q):
+    """ids [B, k] of the card against the CPU's: equal, apart from swaps
+    between ids at true squared distances within 1e-3."""
+    diff = got.cpu() != want
+    x = torch.as_tensor(data).double()
+    qd = torch.as_tensor(q).double()
+
+    def dist(ids):
+        return ((x[ids.long()] - qd[:, None, :]) ** 2).sum(-1)
+
+    assert bool(((dist(got.cpu()) - dist(want)).abs()[diff] <= 1e-3).all())
+
+
+@pytest.mark.parametrize("ooc", [False, True])
+def test_engine_on_the_card_matches_the_cpu(cuda, tmp_path, ooc):
+    """The sharded engine (4 DSTree shards, replicas=2) built on the card
+    answers as the same engine on the CPU, resident and spilled."""
+    from repro_torch.core.engine import DistributedEngine
+    from repro_torch.core.spec import IndexSpec, StoreSpec
+
+    data = randomwalk.generate(seed=3, n_series=4096, series_len=256)
+    q = queries.noisy_queries(data, 16)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        eng = DistributedEngine(shards=4, device=dev).build(
+            data, index=IndexSpec("dstree", leaf_cap=64),
+            store=StoreSpec(spill_dir=str(tmp_path / dev), replicas=2))
+        try:
+            res[dev] = eng.query(q, 10, G.exact(), ooc=ooc)
+        finally:
+            eng.close()
+    got, want = res["cuda"], res["cpu"]
+    assert got.ids.is_cuda and (got.stats is not None) == ooc
+    torch.testing.assert_close(got.dists.cpu() ** 2, want.dists ** 2, **TOL)
+    _ties_only(got.ids, want.ids, data, q)
+
+
+def test_engine_owner_kill_fails_over_on_the_card(cuda, tmp_path):
+    from repro_torch.core.engine import DistributedEngine
+    from repro_torch.core.spec import IndexSpec, StoreSpec
+    from repro_torch.fault import FaultInjector
+    from repro_torch.serve.fault import RetryPolicy
+
+    data = randomwalk.generate(seed=3, n_series=4096, series_len=256)
+    q = queries.noisy_queries(data, 16)
+    DistributedEngine(shards=4).build(
+        data, index=IndexSpec("dstree", leaf_cap=64),
+        store=StoreSpec(spill_dir=str(tmp_path), keep_resident=False,
+                        replicas=2))
+    eng = DistributedEngine.open_spill(StoreSpec(spill_dir=str(tmp_path),
+                                                 keep_resident=False))
+    try:
+        clean = eng.query(q, 10, G.exact())
+        res = eng.query(q, 10, G.exact(), ooc_opts={
+            "fault": FaultInjector().kill_shard(1, replica=0),
+            "retry": RetryPolicy(max_attempts=2, backoff_base_s=0.0)})
+    finally:
+        eng.close()
+    st = clean.stats
+    assert st.retries == st.failovers == st.shards_lost == 0
+    assert res.stats.failovers == 1 and not res.stats.degraded
+    assert torch.equal(res.ids, clean.ids)
+    assert torch.equal(res.dists, clean.dists)
