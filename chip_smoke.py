@@ -72,9 +72,28 @@ Phases, each of which fails the run by raising:
      and row) are held against the plain version after it: K1 and K4
      and K3 (the survivors' brute force) within their tolerances, K5,
      K6 and lex_select bit-equal;
-  9. kernels at the main path's shapes: each kernel against its plain
+  9. streaming ingest on the engine phase's engines (resident, the f32
+     spill opened again, the pq spill): 4 batches of 8192 fresh random
+     walks (seed 12), compacted into a segment after each of the first
+     three, the fourth left in the memtable; 1024 base ids inserted
+     again with new rows; deletes of each query's 5 nearest base rows,
+     a whole leaf (the one holding query 0's nearest), 8192 random base
+     ids, 512 ids of the first segment and 256 of the memtable. Resident exact, eps, delta-eps, ng and exact with
+     share_gathers, spilled f32 eps and ng, pq delta-eps with share, each
+     against brute force over the live rows (exact rows its ids up to
+     ties, epsilon rows within their bound, every returned id live at its
+     live row's distance, so no deleted or superseded copy surfaces); the
+     spilled eps row equal to the resident one; the resident exact row
+     against a rebuild from scratch over the live rows (ids up to ties,
+     bit-equal distances counted); a fresh row asked as a query finds
+     itself; a daemon (auto_compact, delta_max_rows 8192) publishes a
+     segment within 120 s. Launch counts are zeroed before and read
+     after; every kernel but K2 must have run, and the path's kernel
+     inputs are held against the plain versions;
+  10. kernels at the main path's shapes: each kernel against its plain
      version, timed with CUDA events beside the plain version, one
-     PyTorch library call where one computes the same function, and the
+     PyTorch library call where one computes the same function (for K3
+     the cuBLAS expanded form; cdist beside it as ``cdist_ms``), and the
      least time the card could take (bound_ms). ``launches`` counts the
      in-memory path for K1-K4 and lex_select, the out-of-core path for K5
      and K6; ``launches_by_path`` gives every path's. A line splits K4
@@ -826,18 +845,31 @@ def kernel_rows(torch, ops, ref, build, data_t, q_t, idx, vaf, k, counts,
         rate=PEAK_F32_INSTR,
         library=lambda: F.avg_pool1d(data_t[:, None, :], n // l))
 
-    # K3: brute force over the collection; the library call is cdist's
-    # matmul form, which adds a square root
+    # K3: brute force over the collection; the library call is cuBLAS's
+    # expanded form of the same function (both norms, addmm with alpha
+    # -2 onto the rows' norms, the queries' norms added, clamped at 0;
+    # TF32 is off), and cdist's matmul form, which adds a square root, is
+    # timed beside it
     b = q_t.shape[0]
-    add("l2",
-        dist_close(torch, ops.l2(q_t, data_t), ref.ref_l2(q_t, data_t),
-                   "l2 main"),
+
+    def expanded():
+        xn = data_t.square().sum(1)
+        qn = q_t.square().sum(1)
+        return torch.addmm(xn[None, :], q_t, data_t.T, alpha=-2).add_(
+            qn[:, None]).clamp_min_(0.0)
+
+    want = ref.ref_l2(q_t, data_t)
+    dist_close(torch, expanded(), want, "l2 library expanded form")
+    add("l2", dist_close(torch, ops.l2(q_t, data_t), want, "l2 main"),
         lambda: ops.l2(q_t, data_t), lambda: ref.ref_l2(q_t, data_t),
         4 * (b * n + n_rows * n + b * n_rows),
         2 * b * n_rows * n + 2 * (b + n_rows) * n + 3 * b * n_rows,
-        library=lambda: torch.cdist(q_t, data_t,
-                                    compute_mode="use_mm_for_euclid_dist"),
-        reps=5)
+        library=expanded, reps=5)
+    del want
+    rows[-1]["cdist_ms"] = cuda_ms(torch, lambda: torch.cdist(
+        q_t, data_t, compute_mode="use_mm_for_euclid_dist"), 5)
+    print(f"K3 library: expanded form {rows[-1]['library_ms']:.4f} ms, "
+          f"cdist {rows[-1]['cdist_ms']:.4f} ms, K3 {rows[-1]['ms']:.4f} ms")
 
     # K4: one cooperative iteration on iSAX2+ (every lane pools a leaf)
     r = b * idx.max_leaf
@@ -1097,7 +1129,9 @@ def phase_engine(torch, S, G, ref, data, q, truth, k, dist64, pq_map,
     kernels' inputs through each build and row and holds them against
     the plain versions after it. A row with no injected fault must see
     no retry, failover or lost shard. Returns (table rows, build seconds
-    by spill, the kernel inputs held)."""
+    by spill, the kernel inputs held, the engines: the resident one, the
+    pq spill's, and the f32 spill's directory); the caller closes the
+    engines and deletes ``root``."""
     from repro_torch.core.engine import DistributedEngine
     from repro_torch.core.metrics import workload_metrics
     from repro_torch.core.spec import IndexSpec, StoreSpec
@@ -1198,7 +1232,7 @@ def phase_engine(torch, S, G, ref, data, q, truth, k, dist64, pq_map,
                              "exact")
     print(f"  sync_bsf: {int(sync.leaves_visited.sum())} leaves visited "
           f"against {int(plain.leaves_visited.sum())}")
-    del eng
+    resident_eng = eng
 
     spilled = DistributedEngine.open_spill(
         StoreSpec(spill_dir=str(f32_dir), keep_resident=False))
@@ -1279,7 +1313,6 @@ def phase_engine(torch, S, G, ref, data, q, truth, k, dist64, pq_map,
             raise AssertionError("engine every shard lost: no ShardLost")
     finally:
         spilled.close()
-    shutil.rmtree(f32_dir)
 
     pq_dir = root / "pq"
     with path:
@@ -1305,10 +1338,319 @@ def phase_engine(torch, S, G, ref, data, q, truth, k, dist64, pq_map,
                                  f"below the single pq store's {pq_map:.4f}")
         print(f"  engine spill pq: MAP {row['map']:.4f} against the single "
               f"pq store's {pq_map:.4f}")
-    finally:
+    except BaseException:  # re-raised: release the engine on the way out
         eng.close()
-    shutil.rmtree(pq_dir)
-    return table, builds, held
+        raise
+    return table, builds, held, dict(resident=resident_eng, pq=eng,
+                                     f32_dir=f32_dir)
+
+
+INGEST_BATCH = 8192
+
+
+def print_ingest_table(rows) -> None:
+    hdr = (f"{'mode':10s} {'guarantee':18s} {'MAP':>6s} {'%data':>7s} "
+           f"{'it max':>6s} {'it sum':>6s} {'ms':>9s} {'no writes':>9s} "
+           f"{'delta rows':>10s} {'segments':>8s} {'dead':>6s} "
+           f"{'read MB':>9s}")
+    print(hdr)
+    print("-" * len(hdr))
+    for r in rows:
+        before = f"{r['ms_before']:9.1f}" if r["ms_before"] else f"{'-':>9s}"
+        print(f"{r['mode']:10s} {r['guarantee']:18s} {r['map']:6.3f} "
+              f"{r['pct_data']:6.2f}% {r['iters_max']:6d} "
+              f"{r['iters_sum']:6d} {r['ms']:9.1f} {before} "
+              f"{r['delta_rows']:10d} {r['segments']:8d} {r['dead']:6d} "
+              f"{r['bytes_read'] / 1e6:9.1f}")
+
+
+def phase_ingest(torch, S, G, ref, data, data_t, q, truth0, k, engines,
+                 before, path):
+    """Streaming ingest on the engine phase's engines: the resident one,
+    the f32 spill (opened again, so that the fault rows' breaker state
+    stays behind) and the pq spill. Each takes the same writes: 4 batches
+    of INGEST_BATCH fresh random walks (seed 12), compacted after each of
+    the first three (3 segments; the fourth stays in the memtable), 1024
+    base ids inserted again with new rows (seed 13), and deletes of each
+    query's 5 nearest base rows (``truth0``), every row of the resident
+    leaf that holds query 0's nearest, 8192 random base ids, 512 ids of
+    the first segment and 256 of the memtable. Rows then run on
+    each engine and are held against brute force (K3) over the live
+    rows: exact rows return its ids up to ties, epsilon rows meet their
+    bound, every returned id is live at its live row's distance (so no
+    deleted or superseded copy surfaces), the spilled eps=1 row equals the
+    resident one, and a rebuild from scratch over the live rows answers
+    the exact row with the same ids up to ties. A fresh row asked as a
+    query finds itself; a daemon (auto_compact) publishes a segment within
+    a bounded wait. ``before`` maps (mode, guarantee) to the row's ms
+    without writes; ``path`` holds the kernels' inputs. Returns (table
+    rows, timings, kernel inputs held)."""
+    from repro_torch.core.engine import DistributedEngine
+    from repro_torch.core.metrics import workload_metrics
+    from repro_torch.core.spec import IndexSpec, StoreSpec
+    from repro_torch.data import randomwalk
+    from repro_torch.obs import REGISTRY
+
+    n_series = data.shape[0]
+    nb = INGEST_BATCH
+    dev = data_t.device
+    q_t = torch.as_tensor(q, device=dev)
+    held, table, times = [], [], dict(insert_s=0.0, delete_s=0.0,
+                                      compact_s=[], inserted=0, deleted=0)
+    fresh = randomwalk.generate(seed=12, n_series=4 * nb, series_len=256)
+    batch_ids = [n_series + nb * b + np.arange(nb) for b in range(4)]
+    rng = np.random.default_rng(12)
+    top5 = np.unique(truth0.ids[:, :5].cpu().numpy())
+    # a whole leaf dead: the resident leaf that holds query 0's nearest row
+    near = int(truth0.ids[0, 0])
+    bounds = np.linspace(0, n_series, ENGINE_SHARDS + 1).astype(np.int64)
+    si = int(np.searchsorted(bounds, near, side="right")) - 1
+    sh = engines["resident"].resident[si]
+    sh_ids = sh.ids.cpu().numpy()
+    off = sh.offsets.cpu().numpy()
+    leaf = int(np.searchsorted(off, int(np.flatnonzero(sh_ids == near)[0]),
+                               side="right")) - 1
+    leaf_ids = sh_ids[off[leaf]:off[leaf + 1]]
+    top5 = np.union1d(top5, leaf_ids[leaf_ids >= 0])
+    print(f"  a whole leaf dead: leaf {leaf} of shard {si}, "
+          f"{int((leaf_ids >= 0).sum())} rows, holding query 0's nearest row")
+    others = np.setdiff1d(np.arange(n_series), top5)
+    re_ids = np.sort(rng.choice(others, 1024, replace=False))
+    re_rows = randomwalk.generate(seed=13, n_series=1024, series_len=256)
+    deleted = np.unique(np.concatenate([
+        top5, rng.choice(np.setdiff1d(others, re_ids), 8192, replace=False),
+        rng.choice(batch_ids[0], 512, replace=False),
+        rng.choice(batch_ids[3], 256, replace=False)]))
+    f32_dir = engines["f32_dir"]
+    # the build's IndexSpec, which segments are built with
+    ispec = IndexSpec("dstree", leaf_cap=256)
+    spill = DistributedEngine.open_spill(
+        StoreSpec(spill_dir=str(f32_dir), keep_resident=False), index=ispec)
+    writers = {"resident": engines["resident"], "spill f32": spill,
+               "spill pq": engines["pq"]}
+    dead_t = torch.as_tensor(deleted, device=dev)
+    live = {}
+
+    def run(mode, gname, eng, g, check=True, **kw):
+        with path:
+            t0 = time.perf_counter()
+            res = eng.query(q, k, g, **kw)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        held.extend(path.check(f"ingest {mode} {gname}"))
+        print(f"  ingest {mode} {gname}: {sec:.2f} s, iterations "
+              f"{res.iterations}")
+        if not check:
+            return res, sec
+        what = f"ingest {mode} {gname}"
+        truth, truth_ids, dist64 = live["truth"], live["ids"], live["dist"]
+        if res.dists.shape != (q.shape[0], k) or bool((res.ids < 0).any()):
+            raise AssertionError(f"{what}: wrong shape or a missing id")
+        if bool(torch.isin(res.ids, dead_t).any()):
+            raise AssertionError(f"{what}: a deleted id was returned")
+        # every (id, distance) is the live row's: a superseded copy of a
+        # re-inserted id would come back at its old row's distance
+        dist_close(torch, res.dists ** 2, dist64(res.ids),
+                   f"{what}: distances of the live rows")
+        m = workload_metrics(res.ids, res.dists, truth_ids, truth.dists)
+        if g.epsilon > 0:
+            ok = res.dists <= (1 + g.epsilon) * truth.dists * (1 + 1e-4) \
+                + 1e-4
+            if not bool(ok.all()):
+                raise AssertionError(f"{what}: the epsilon bound holds for "
+                                     f"{float(ok.float().mean()):.3f} of "
+                                     "the ranks")
+        elif g.nprobe is None:
+            if f"{m['map']:.3f}" != "1.000":
+                raise AssertionError(f"{what}: MAP {m['map']} on an exact "
+                                     "row")
+            swaps = ties_only(torch, res.ids, truth_ids, dist64, what)
+            print(f"  {what}: ids are brute force's over the live rows "
+                  f"({swaps} swaps of ties)")
+        snap = eng._delta.snapshot()
+        table.append(dict(
+            mode=mode, guarantee=gname, map=m["map"],
+            pct_data=100 * float(res.rows_scanned.float().mean())
+            / live["n"], iters_max=max(res.iterations),
+            iters_sum=sum(res.iterations), ms=sec * 1e3,
+            ms_before=before.get((mode, gname)), delta_rows=snap.live_rows,
+            segments=len(snap.segments), dead=int(deleted.shape[0]),
+            bytes_read=res.stats.bytes_read if res.stats else 0))
+        return res, sec
+
+    try:
+        # the pq row without writes, which the engine phase did not run
+        pq_g = G.delta_epsilon(0.99, 1.0)
+        _, sec = run("spill pq", "d=.99,eps=1+share", writers["spill pq"],
+                     pq_g, check=False, share_gathers=True)
+        before[("spill pq", "d=.99,eps=1+share")] = sec * 1e3
+
+        for name, eng in writers.items():
+            with path:
+                for b in range(4):
+                    t0 = time.perf_counter()
+                    got = eng.insert(fresh[b * nb:(b + 1) * nb])
+                    times["insert_s"] += time.perf_counter() - t0
+                    times["inserted"] += nb
+                    if not np.array_equal(got, batch_ids[b]):
+                        raise AssertionError(f"ingest {name}: batch {b} got "
+                                             "other ids")
+                    if b < 3:
+                        t0 = time.perf_counter()
+                        if not eng.compact():
+                            raise AssertionError(f"ingest {name}: compact() "
+                                                 "published nothing")
+                        torch.cuda.synchronize()
+                        times["compact_s"].append(time.perf_counter() - t0)
+                # a fresh row asked as a query finds itself at once
+                res = eng.query(fresh[3 * nb:3 * nb + 8], 1, G.ng(1))
+                if not np.array_equal(res.ids[:, 0].cpu().numpy(),
+                                      batch_ids[3][:8]):
+                    raise AssertionError(f"ingest {name}: a fresh row did "
+                                         "not find itself")
+                t0 = time.perf_counter()
+                eng.insert(re_rows, ids=re_ids)
+                times["insert_s"] += time.perf_counter() - t0
+                times["inserted"] += re_ids.shape[0]
+                t0 = time.perf_counter()
+                eng.delete(deleted)
+                times["delete_s"] += time.perf_counter() - t0
+                times["deleted"] += deleted.shape[0]
+            held.extend(path.check(f"ingest {name} writes"))
+        print(f"  writes on 3 engines: {times['inserted']} rows inserted in "
+              f"{times['insert_s']:.3f} s, {times['deleted']} deleted in "
+              f"{times['delete_s']:.3f} s, 9 compactions "
+              f"{', '.join(f'{c:.2f}' for c in times['compact_s'])} s")
+
+        eng = writers["resident"]
+        t0 = time.perf_counter()
+        snap = eng._delta.snapshot()
+        times["snapshot_ms"] = (time.perf_counter() - t0) * 1e3
+        ids_host = [sh.ids.cpu().numpy() for sh in eng.resident]
+        t0 = time.perf_counter()
+        masks = [torch.as_tensor(snap.dead_mask(ids, 0), device=dev)
+                 for ids in ids_host]
+        torch.cuda.synchronize()
+        times["mask_ms"] = (time.perf_counter() - t0) * 1e3
+        base_dead = sum(int(m.sum()) for m in masks)
+        print(f"  snapshot {times['snapshot_ms']:.1f} ms ({snap.live_rows} "
+              f"delta rows, {len(snap.kills)} kills); tombstone masks of "
+              f"{ENGINE_SHARDS} shards {times['mask_ms']:.1f} ms "
+              f"({base_dead} base rows dead)")
+
+        # the live rows, by global id, and brute force over them
+        base_live = np.setdiff1d(np.arange(n_series),
+                                 np.concatenate([deleted, re_ids]))
+        batch_all = np.concatenate(batch_ids)
+        keep = ~np.isin(batch_all, deleted)
+        live_ids = np.concatenate([base_live, re_ids, batch_all[keep]])
+        live_rows = torch.cat([
+            data_t[torch.as_tensor(base_live, device=dev)],
+            torch.as_tensor(re_rows, device=dev),
+            torch.as_tensor(fresh[keep], device=dev)])
+        with path:
+            truth = S.brute_force(q, live_rows, k)
+        held.extend(path.check("ingest brute force over the live rows"))
+        ids_t = torch.as_tensor(live_ids, device=dev)
+        pos = torch.zeros(n_series + 4 * nb, dtype=torch.long, device=dev)
+        pos[ids_t] = torch.arange(ids_t.shape[0], device=dev)
+        live.update(truth=truth, ids=ids_t[truth.ids.long()].to(torch.int32),
+                    dist=sq_dist64(torch, q_t, live_rows, pos),
+                    n=int(ids_t.shape[0]))
+        print(f"  live rows: {live['n']} ({base_live.shape[0]} base, "
+              f"{re_ids.shape[0]} re-inserted, {int(keep.sum())} inserted)")
+
+        got = {}
+        for gname, g, kw in (("exact", G.exact(), {}),
+                             ("eps=1", G.epsilon(1.0), {}),
+                             ("d=.99,eps=1", G.delta_epsilon(0.99, 1.0), {}),
+                             ("ng(nprobe=4)", G.ng(4), {}),
+                             ("exact+share", G.exact(),
+                              dict(share_gathers=True))):
+            got[("resident", gname)], _ = run("resident", gname,
+                                              writers["resident"], g, **kw)
+        for gname, g in (("eps=1", G.epsilon(1.0)),
+                         ("ng(nprobe=4)", G.ng(4))):
+            got[("spill f32", gname)], _ = run("spill f32", gname, spill, g)
+        run("spill pq", "d=.99,eps=1+share", writers["spill pq"], pq_g,
+            share_gathers=True)
+
+        a, b = got[("spill f32", "eps=1")], got[("resident", "eps=1")]
+        for f in ("dists", "leaves_visited", "rows_scanned"):
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"ingest spill f32 eps=1 vs resident: "
+                                     f"{f} differ")
+        ai = a.ids.gather(1, ref.lex_order(a.dists, a.ids))
+        bi = b.ids.gather(1, ref.lex_order(b.dists, b.ids))
+        if not torch.equal(ai, bi):
+            raise AssertionError("ingest spill f32 eps=1 vs resident: ids "
+                                 "differ")
+        print(f"  ingest spill f32 eps=1 equals resident eps=1 "
+              f"({int((a.ids != b.ids).sum())} ids in another order among "
+              "equal distances)")
+
+        # a rebuild from scratch over the live rows, asked the exact row
+        with path:
+            t0 = time.perf_counter()
+            rebuilt = DistributedEngine(shards=ENGINE_SHARDS).build(
+                live_rows.cpu().numpy(), index=ispec)
+            res = rebuilt.query(q, k, G.exact())
+            torch.cuda.synchronize()
+            times["rebuild_s"] = time.perf_counter() - t0
+        held.extend(path.check("ingest rebuild"))
+        del rebuilt
+        mine = got[("resident", "exact")]
+        r_ids = ids_t[res.ids.long()].to(torch.int32)
+        swaps = ties_only(torch, mine.ids, r_ids, live["dist"],
+                          "ingest resident exact vs a rebuild")
+        dist_close(torch, mine.dists ** 2, res.dists ** 2,
+                   "ingest resident exact vs a rebuild")
+        same = mine.ids == r_ids
+        bit = int((mine.dists == res.dists)[same].sum())
+        why = "" if bit == int(same.sum()) else (
+            " (the rest: cuBLAS sums each product in an order set by its "
+            "pool's width, and a row sits in pools of other widths in the "
+            "two)")
+        print(f"  ingest resident exact vs a rebuild over the live rows "
+              f"({times['rebuild_s']:.1f} s): ids equal up to {swaps} swaps "
+              f"of ties; {bit} of {int(same.sum())} distances at equal ids "
+              f"bit-equal{why}")
+
+        # the daemon: a spill opened with auto_compact publishes a segment
+        auto = DistributedEngine.open_spill(StoreSpec(
+            spill_dir=str(f32_dir), keep_resident=False,
+            delta_max_rows=nb, auto_compact=True, compact_interval_s=0.05),
+            index=ispec)
+        errors = REGISTRY.counter("delta.compaction_errors")
+        errors.mark()
+        try:
+            extra = randomwalk.generate(seed=12, n_series=nb, series_len=256,
+                                        start=4 * nb)
+            with path:
+                t0 = time.perf_counter()
+                new = auto.insert(extra)
+                while not auto._delta.segments():
+                    if time.perf_counter() - t0 > 120:
+                        raise AssertionError("ingest daemon: no segment "
+                                             "published within 120 s")
+                    time.sleep(0.02)
+                times["daemon_s"] = time.perf_counter() - t0
+                res = auto.query(extra[:8], 1, G.ng(4))
+            held.extend(path.check("ingest daemon"))
+            if auto._delta.snapshot().live_rows != 0 or not np.array_equal(
+                    res.ids[:, 0].cpu().numpy(), new[:8]):
+                raise AssertionError("ingest daemon: the segment does not "
+                                     "serve the inserted rows")
+        finally:
+            auto.close()
+        if errors.since_mark:
+            raise AssertionError(f"ingest daemon: {errors.since_mark} "
+                                 "compaction errors")
+        print(f"  ingest daemon: {nb} rows inserted, segment published "
+              f"after {times['daemon_s']:.2f} s, rows found in it")
+    finally:
+        spill.close()
+    return table, times, held
 
 
 def main() -> int:
@@ -1458,7 +1800,8 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the baselines "
                              f"path: {missing}")
 
-    # the sharded engine on the main path's data, with its own counts
+    # the sharded engine on the main path's data, with its own counts,
+    # then streaming ingest on its engines, with its own
     eng_root = root / "engine"
     shutil.rmtree(eng_root, ignore_errors=True)
     for fn in wrappers.values():
@@ -1466,26 +1809,60 @@ def main() -> int:
     t0 = time.perf_counter()
     pq_map = next(r["map"] for r in ooc_table
                   if (r["codec"], r["guarantee"]) == ("pq", "eps=1+share"))
+    engines = None
     try:
-        eng_table, eng_builds, held = phase_engine(
+        eng_table, eng_builds, held, engines = phase_engine(
             torch, S, G, ref, data, q, truth, k, dist64, pq_map, eng_root,
             PathInputs(torch, ops, ref, wrappers))
+        eng_counts = {name: fn.launches for name, fn in wrappers.items()}
+        print(f"sharded engine, {ENGINE_SHARDS} DSTree shards at N = "
+              f"{n_series} ({time.perf_counter() - t0:.1f} s; builds "
+              + ", ".join(f"{n} {s:.1f} s" for n, s in eng_builds.items())
+              + "):")
+        print_engine_table(eng_table)
+        print(f"kernel inputs of the engine path held against the plain "
+              f"versions ({len(held)}): " + "; ".join(
+                  f"{key[0]} {key[1:]}" for key in held))
+        print(f"launches on the engine path: {eng_counts}")
+        missing = [name for name, c in eng_counts.items()
+                   if c == 0 and name != "paa"]
+        if missing:
+            raise AssertionError(f"kernels not launched on the engine path: "
+                                 f"{missing}")
+
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        before = {(r["mode"], r["guarantee"]): r["ms"] for r in eng_table}
+        ing_table, ing_times, held = phase_ingest(
+            torch, S, G, ref, data, data_t, q, truth, k, engines, before,
+            PathInputs(torch, ops, ref, wrappers))
+        ing_counts = {name: fn.launches for name, fn in wrappers.items()}
     finally:
+        if engines is not None:
+            engines["resident"].close()
+            engines["pq"].close()
         shutil.rmtree(eng_root, ignore_errors=True)
-    eng_counts = {name: fn.launches for name, fn in wrappers.items()}
-    print(f"sharded engine, {ENGINE_SHARDS} DSTree shards at N = {n_series} "
-          f"({time.perf_counter() - t0:.1f} s; builds "
-          + ", ".join(f"{n} {s:.1f} s" for n, s in eng_builds.items())
-          + "):")
-    print_engine_table(eng_table)
-    print(f"kernel inputs of the engine path held against the plain "
+    ins_rate = ing_times["inserted"] / max(ing_times["insert_s"], 1e-9)
+    del_rate = ing_times["deleted"] / max(ing_times["delete_s"], 1e-9)
+    comp = ing_times["compact_s"]
+    print(f"streaming ingest on the engine's shards "
+          f"({time.perf_counter() - t0:.1f} s): inserts {ins_rate:.0f} rows/s,"
+          f" deletes {del_rate:.0f} rows/s, compaction "
+          f"{sum(comp) / len(comp):.2f} s each ({min(comp):.2f}-"
+          f"{max(comp):.2f}), tombstone masks {ing_times['mask_ms']:.1f} ms, "
+          f"snapshot {ing_times['snapshot_ms']:.1f} ms, daemon "
+          f"{ing_times['daemon_s']:.2f} s, rebuild {ing_times['rebuild_s']:.1f}"
+          " s:")
+    print_ingest_table(ing_table)
+    print(f"kernel inputs of the ingest path held against the plain "
           f"versions ({len(held)}): " + "; ".join(
               f"{key[0]} {key[1:]}" for key in held))
-    print(f"launches on the engine path: {eng_counts}")
-    missing = [name for name, c in eng_counts.items()
+    print(f"launches on the ingest path: {ing_counts}")
+    missing = [name for name, c in ing_counts.items()
                if c == 0 and name != "paa"]
     if missing:
-        raise AssertionError(f"kernels not launched on the engine path: "
+        raise AssertionError(f"kernels not launched on the ingest path: "
                              f"{missing}")
 
     rows = kernel_rows(torch, ops, ref, build, data_t, q_t, built["isax2+"],
@@ -1495,7 +1872,8 @@ def main() -> int:
             "in_memory": mem_counts[r["name"]],
             "out_of_core": ooc_counts[r["name"]],
             "baselines": base_counts[r["name"]],
-            "engine": eng_counts[r["name"]]}
+            "engine": eng_counts[r["name"]],
+            "ingest": ing_counts[r["name"]]}
     shapes = shape_rows(torch, ops, ref, data_t, q_t)
     for r in shapes:
         print(f"  {r['name']} at {r['shape']}: {r['ms']:.4f} ms, bound "

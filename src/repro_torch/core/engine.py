@@ -42,6 +42,20 @@ On one card the shards are folded sequentially: owner threads sharing
 one interpreter and one stream slowed each other (4 owners took 1.9x
 the sequential fold's time on an H100). Concurrent queries stay safe:
 each store copy's warm cache serves one query at a time under its lock.
+
+The write tier (:meth:`DistributedEngine.enable_writes`, ``insert``,
+``delete``, ``compact``): a store.delta.DeltaTier absorbs writes while
+the engine serves. A query snapshots it first, so every unit serves one
+point in time: each frozen shard and segment masks the rows the
+snapshot's kills supersede (``ScoreCtx.dead``), r_delta uses the joint
+live N (core.guarantees.joint_n_total), each compacted segment is served
+as one more shard and the memtable is brute-scored last, all folded
+through ``ops.topk_merge_unique``. The kill rule leaves at most one live
+copy of an id, so the fold equals a rebuild that holds the same live
+rows. Compaction freezes the memtable into an on-disk segment
+(spill_dir/segments/writer-*/seg_NNNN, in the base codec), by hand or on
+a daemon thread (``StoreSpec.auto_compact``) that polls with
+``Event.wait``.
 """
 
 from __future__ import annotations
@@ -49,6 +63,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import shutil
+import tempfile
 import threading
 import warnings
 from typing import NamedTuple, Optional, Tuple
@@ -61,11 +76,12 @@ from repro_torch.kernels import ops
 from repro_torch.obs import REGISTRY, OocStats
 
 from . import refine
-from .guarantees import EXACT, Guarantee, effective_delta_after_loss
+from .guarantees import (EXACT, Guarantee, effective_delta_after_loss,
+                         joint_n_total)
 from .histogram import DEFAULT_SEED, build_histogram
 from .index import FrozenIndex
 from .indexes import dstree, isax, vafile
-from .search import Refinement
+from .search import Refinement, pad_mask, search_impl
 from .spec import IndexSpec, StoreSpec
 
 
@@ -73,7 +89,7 @@ class QueryResult(NamedTuple):
     """What :meth:`DistributedEngine.query` returns: the merged answer,
     the visit counts summed over shards, the per-query OocStats (None on
     the resident path, which does no I/O) and each shard's iterations
-    (0 for a lost shard)."""
+    (0 for a lost shard), then each compacted segment's."""
 
     dists: torch.Tensor           # [B, k] Euclidean distances, ascending
     ids: torch.Tensor             # [B, k] int32 global row ids (-1 = none)
@@ -82,6 +98,33 @@ class QueryResult(NamedTuple):
     lb_computed: int
     stats: Optional[OocStats] = None
     iterations: Tuple[int, ...] = ()
+
+
+class EngineSegment(NamedTuple):
+    """One compacted delta segment: the leaf-contiguous store the
+    compactor froze out of the write tier, served as one more shard.
+    ``born_seq`` is the write sequence of the freeze: a kill with a newer
+    sequence masks the segment's copy of its id (store.delta), which
+    makes publishing safe while deletes race the build. ``index`` keeps
+    the f32 FrozenIndex on the device for a resident engine, which scores
+    it as it scores its resident shards; an out-of-core engine serves the
+    segment's store (in the base codec) instead."""
+    dir: str
+    born_seq: int
+    n_rows: int
+    ids_np: np.ndarray                 # [npad] global ids (-1 pad)
+    index: Optional[FrozenIndex] = None
+
+
+class _MutView(NamedTuple):
+    """What one query needs to serve a write-tier snapshot with the
+    frozen base: the snapshot, the joint r_delta row count
+    (core.guarantees.joint_n_total: inserts raise N, deletes never lower
+    it) and each published segment's tombstone mask under the snapshot's
+    kills. Made once per query, never changed."""
+    snap: object                        # store.delta.DeltaSnapshot
+    joint_n: int
+    seg_dead: Tuple[np.ndarray, ...]    # per segment, [npad] bool
 
 
 _BUILDERS = {
@@ -173,6 +216,35 @@ class DistributedEngine:
     # out-of-core query
     _breaker: Optional[object] = dataclasses.field(
         default=None, repr=False, compare=False)
+    # ---- the write tier, armed by enable_writes() ----
+    _delta: Optional[object] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    # serializes enable_writes and segment numbering (the delta tier has
+    # its own lock). Lock order: _write_lock is a leaf, never held across
+    # a delta or store call
+    _write_lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
+    _seg_dir: Optional[str] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _seg_seq: int = dataclasses.field(
+        default=0, repr=False, compare=False)
+    _compactor: Optional[threading.Thread] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _compactor_stop: Optional[threading.Event] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    # host copies of each frozen unit's padded ids, keyed ("rshard", si),
+    # ("sshard", si) or ("seg", dir): masks are made from them when the
+    # kill set moves, with no device read per query
+    _ids_host: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+    # per unit (kills_version, host mask) and (kills_version, device mask
+    # or None). Lock-free: dict get and set are atomic under the GIL, the
+    # version keys a hit, and racing queries make interchangeable masks
+    # from their own snapshots
+    _dead_cache: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+    _dead_dev: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def n_shards(self) -> int:
@@ -219,11 +291,18 @@ class DistributedEngine:
         ``n_total = N``. ``StoreSpec.spill_dir`` saves every shard as a
         store (spill_dir/shard_NNNN, in ``codec``) and ``replicas - 1``
         byte-identical copies under spill_dir/replicas/rN/;
-        ``keep_resident=False`` keeps only the stores."""
+        ``keep_resident=False`` keeps only the stores. The write tier of a
+        previous build is dropped with its rows."""
         ispec = index or IndexSpec(method=self.method)
         sspec = (store or StoreSpec()).validate()
         dev = device_mod.resolve(self.device)
-        self.close()  # the previous build's out-of-core state
+        self.close()  # the previous build's out-of-core state and daemon
+        self._delta = None
+        self._seg_dir = None
+        self._seg_seq = 0
+        self._ids_host.clear()
+        self._dead_cache.clear()
+        self._dead_dev.clear()
         self.method = ispec.method
         self.index_spec, self.store_spec = ispec, sspec
         n = data.shape[0]
@@ -268,6 +347,273 @@ class DistributedEngine:
                                   for sh in shards)
         return self
 
+    # ------------------------------------------------------ the write tier
+    def _base_meta(self) -> tuple:
+        """(n_total, series_len, hist) of the frozen base: from a resident
+        shard, else from shard 0's store (every shard holds the global
+        values)."""
+        if self.resident is not None:
+            idx = self.resident[0]
+        elif self.shard_dirs:
+            idx = self._store(self.shard_dirs[0]).resident
+        else:
+            raise ValueError("build() or open_spill() first")
+        return int(idx.n_total), int(idx.series_len), idx.hist
+
+    def enable_writes(self) -> "DistributedEngine":
+        """Arm the write tier: a store.delta.DeltaTier that takes
+        ``insert`` and ``delete`` while the engine serves, searched with
+        the frozen shards by every later :meth:`query`; with
+        ``StoreSpec.auto_compact``, also the daemon that compacts the
+        memtable into segments. Idempotent; ``insert`` and ``delete``
+        call it."""
+        from repro_torch.store.delta import DeltaTier
+
+        spec = self.store_spec or StoreSpec()
+        if self._delta is None:
+            # the metadata read may open a store (under _ooc_lock): done
+            # before _write_lock, which stays a leaf
+            n_total, series_len, _ = self._base_meta()
+            with self._write_lock:
+                if self._delta is None:
+                    if self._seg_dir is None:
+                        # one directory per writer: engines that serve
+                        # one spill (a resident build and an open_spill
+                        # of it) keep their segments apart
+                        root = None
+                        if spec.spill_dir is not None:
+                            root = os.path.join(spec.spill_dir, "segments")
+                            os.makedirs(root, exist_ok=True)
+                        self._seg_dir = tempfile.mkdtemp(
+                            prefix="writer-" if root else "repro-segments-",
+                            dir=root)
+                    self._delta = DeltaTier(series_len, start_id=n_total)
+        if spec.auto_compact:
+            with self._write_lock:
+                if self._compactor is None \
+                        or not self._compactor.is_alive():
+                    self._compactor_stop = threading.Event()
+                    t = threading.Thread(target=self._compact_loop,
+                                         name="delta-compactor",
+                                         daemon=True)
+                    self._compactor = t
+                    t.start()
+        return self
+
+    def insert(self, rows, ids=None) -> np.ndarray:
+        """Absorb rows [m, n] (host array); the next :meth:`query` finds
+        them. Returns their global ids (past the frozen id space unless
+        given); inserting an id that exists supersedes every older
+        copy."""
+        self.enable_writes()
+        return self._delta.insert(rows, ids)
+
+    def delete(self, ids) -> int:
+        """Tombstone global ids everywhere: frozen shards, compacted
+        segments and the memtable."""
+        self.enable_writes()
+        return self._delta.delete(ids)
+
+    def compact(self) -> bool:
+        """Freeze the live memtable into one on-disk segment (the base
+        codec) and publish it. A query in flight keeps its snapshot and
+        never blocks; writes during the build go to the fresh memtable.
+        Returns True iff a segment was published; a second compaction
+        while one is in flight returns False."""
+        delta = self._delta
+        if delta is None:
+            return False
+        batch = delta.begin_freeze()
+        if batch is None:
+            return False
+        try:
+            seg = self._build_segment(batch)
+        except BaseException:  # re-raised: the fold-back must run even for KeyboardInterrupt or SystemExit, or the frozen batch's writes would be lost
+            delta.abort_freeze()
+            raise
+        delta.publish_segment(seg)
+        return True
+
+    def _segment_codec(self) -> str:
+        """The codec segments are saved in: the base shards' (so a rebuild
+        from scratch and frozen+delta encode rows alike), else the
+        StoreSpec's for a resident engine with no spill."""
+        if self.shard_dirs:
+            return self._store(self.shard_dirs[0]).codec
+        return (self.store_spec or StoreSpec()).codec
+
+    def _build_segment(self, batch) -> EngineSegment:
+        """One delta batch as a segment store: a FrozenIndex over the
+        batch's rows with the base's method and params, the global
+        histogram and the builders' default seed (the reference's
+        ``PRNGKey(0)``), its row ids mapped to the batch's global ids,
+        saved under the writer's segment directory as seg_NNNN in the
+        base codec; a pq batch with
+        fewer rows than the codebook's centroids is saved as f32."""
+        from repro_torch.store.layout import PQ_K
+
+        n_base, _, hist = self._base_meta()
+        ispec = self.index_spec or IndexSpec(method=self.method)
+        dev = device_mod.resolve(self.device)
+        idx = _BUILDERS[ispec.method](batch.rows, hist=hist,
+                                      seed=DEFAULT_SEED, device=dev,
+                                      **ispec.build_params)
+        local = idx.ids.cpu().numpy()
+        gids = np.asarray(batch.ids, np.int64)
+        ext = np.where(local >= 0,
+                       gids[np.clip(local, 0, gids.shape[0] - 1)], -1)
+        idx = dataclasses.replace(
+            idx, ids=torch.as_tensor(ext, dtype=torch.int32, device=dev),
+            n_total=n_base)
+        with self._write_lock:  # a leaf: segment numbering only
+            seq = self._seg_seq
+            self._seg_seq += 1
+        d = os.path.join(self._seg_dir, f"seg_{seq:04d}")
+        codec = self._segment_codec()
+        if codec == "pq" and batch.rows.shape[0] < PQ_K:
+            # a codebook trains one centroid per code: a smaller batch
+            # cannot train one, and the small segment is kept lossless
+            codec = "f32"
+        idx.save(d, codec=codec)
+        return EngineSegment(
+            dir=d, born_seq=batch.born_seq, n_rows=int(batch.ids.shape[0]),
+            ids_np=ext.astype(np.int32),
+            index=idx if self.resident is not None else None)
+
+    def _compact_loop(self) -> None:
+        """The compaction daemon (``StoreSpec.auto_compact``): every
+        ``compact_interval_s`` it checks the memtable and compacts once
+        ``delta_max_rows`` live rows wait."""
+        spec = self.store_spec or StoreSpec()
+        stop = self._compactor_stop
+        while not stop.wait(spec.compact_interval_s):
+            delta = self._delta
+            if delta is None or not delta.freeze_threshold_reached(
+                    spec.delta_max_rows):
+                continue
+            try:
+                self.compact()
+            except Exception:  # noqa: BLE001 the daemon must outlive one failed compaction (disk full, a build error): compact() already folded the batch back into the memtable through abort_freeze, so count it and retry at the next tick
+                REGISTRY.counter("delta.compaction_errors").inc()
+
+    def _stop_compactor(self) -> None:
+        """Stop the compaction daemon if it runs (idempotent; close() and
+        build() call it). The thread is joined outside _write_lock, which
+        its body takes for segment numbering."""
+        with self._write_lock:
+            t, self._compactor = self._compactor, None
+            ev, self._compactor_stop = self._compactor_stop, None
+        if ev is not None:
+            ev.set()
+        if t is not None and t.is_alive():
+            t.join(timeout=60.0)
+
+    def _mutable_view(self, snap) -> _MutView:
+        """The joint r_delta N and every published segment's mask for one
+        snapshot. ``base_dead`` counts the kills in the frozen id range
+        [0, n_base), the ids the range-sharded build assigns, so a delete
+        of an id never inserted costs nothing."""
+        n_base, _, _ = self._base_meta()
+        base_dead = 0
+        if snap.kills:
+            kid = np.fromiter(snap.kills.keys(), np.int64,
+                              count=len(snap.kills))
+            base_dead = int(((kid >= 0) & (kid < n_base)).sum())
+        seg_dead, seg_live = [], 0
+        for seg in snap.segments:
+            self._ids_host.setdefault(("seg", seg.dir), seg.ids_np)
+            m = self._unit_dead(("seg", seg.dir), seg.born_seq, snap)
+            seg_dead.append(m)
+            seg_live += seg.n_rows - int(m.sum())
+        return _MutView(snap=snap,
+                        joint_n=joint_n_total(n_base, base_dead,
+                                              seg_live + snap.live_rows),
+                        seg_dead=tuple(seg_dead))
+
+    def _unit_dead(self, unit, born_seq: int, snap) -> np.ndarray:
+        """One frozen unit's tombstone mask under this snapshot (host,
+        unpadded), cached by kills_version: an ``isin`` over the unit's
+        ids per query would dominate serving between writes."""
+        hit = self._dead_cache.get(unit)
+        if hit is not None and hit[0] == snap.kills_version:
+            return hit[1]
+        mask = snap.dead_mask(self._ids_host[unit], born_seq)
+        self._dead_cache[unit] = (snap.kills_version, mask)
+        return mask
+
+    def _unit_dead_dev(self, unit, born_seq: int, snap, pad_to: int,
+                       dev) -> Optional[torch.Tensor]:
+        """The unit's mask on ``dev``, padded with False to ``pad_to``
+        rows (the unit's padded row count, which ``ScoreCtx.dead[row_idx]``
+        reads), or None when the snapshot kills none of its rows; cached
+        by kills_version like :meth:`_unit_dead`."""
+        hit = self._dead_dev.get(unit)
+        if hit is not None and hit[0] == snap.kills_version:
+            return hit[1]
+        mask = self._unit_dead(unit, born_seq, snap)
+        out = pad_mask(mask, pad_to, dev) if mask.any() else None
+        self._dead_dev[unit] = (snap.kills_version, out)
+        return out
+
+    def _fold_mutable(self, base: "QueryResult", mut: _MutView, q, k: int,
+                      g: Guarantee, visit_batch: int, *,
+                      resident: bool) -> "QueryResult":
+        """Fold the write tier into the frozen base's answer: each
+        published segment is served as one more shard (a resident engine
+        searches the segment's f32 index as it searches its shards, an
+        out-of-core engine the segment's store), then the memtable is
+        brute-scored (store.delta.search_snapshot), each answer merged by
+        ``ops.topk_merge_unique``. The kill rule leaves one live copy of
+        an id across them, the merge's precondition, and the merge is a
+        commutative (d, id)-lex selection, so the staged fold equals a
+        rebuild's single sort. A segment's iterations follow the
+        shards'."""
+        from repro_torch.store import search_ooc
+        from repro_torch.store.delta import search_snapshot
+
+        snap = mut.snap
+        b = q.shape[0]
+        top_d, top_i = base.dists, base.ids
+        leaves = base.leaves_visited.clone()
+        rows = base.rows_scanned.clone()
+        lbs = base.lb_computed
+        iters = list(base.iterations)
+        for seg in snap.segments:
+            unit = ("seg", seg.dir)
+            if resident and seg.index is not None:
+                dead = self._unit_dead_dev(unit, seg.born_seq, snap,
+                                           seg.index.data.shape[0], q.device)
+                r = search_impl(seg.index, q, k, delta=g.delta,
+                                epsilon=g.epsilon, nprobe=g.nprobe,
+                                visit_batch=visit_batch, dead=dead,
+                                n_override=mut.joint_n)
+            else:
+                with self._copy_lock(seg.dir):
+                    store = self._store(seg.dir)
+                    cache = self._shard_cache(seg.dir, store,
+                                              b * visit_batch, None,
+                                              prefetch_depth=1,
+                                              prefetch=True)
+                    dead = self._unit_dead_dev(unit, seg.born_seq, snap,
+                                               store.mmap.shape[0],
+                                               store.device)
+                    r = search_ooc(store, q, k, g, visit_batch=visit_batch,
+                                   cache=cache, dead=dead,
+                                   n_override=mut.joint_n).result
+            top_d, top_i = ops.topk_merge_unique(r.dists, r.ids, top_d,
+                                                 top_i)
+            leaves += r.leaves_visited
+            rows += r.rows_scanned
+            lbs += r.lb_computed
+            iters.append(r.iterations)
+        sd, si = search_snapshot(
+            snap, q, k, codec="f32" if resident else self._segment_codec())
+        top_d, top_i = ops.topk_merge_unique(sd, si, top_d, top_i)
+        rows += snap.live_rows  # the memtable scan touches every row
+        return base._replace(dists=top_d, ids=top_i, leaves_visited=leaves,
+                             rows_scanned=rows, lb_computed=lbs,
+                             iterations=tuple(iters))
+
     # ------------------------------------------------------------------
     def query(self, queries, k: int, g: Guarantee = EXACT,
               visit_batch: int = 1, sync_bsf: bool = False,
@@ -284,8 +630,16 @@ class DistributedEngine:
         the fault-tolerance knobs the engine takes itself: ``fault`` (a
         repro_torch.fault.FaultInjector) and ``retry`` (a
         serve.fault.RetryPolicy). Concurrent calls return what serial
-        calls return."""
+        calls return. With the write tier armed, the answer is over the
+        live rows: the frozen shards less their tombstoned rows, the
+        compacted segments and the memtable, as of one snapshot taken
+        before anything is searched."""
         g = g.validate()
+        mut = None
+        if self._delta is not None:
+            snap = self._delta.snapshot()
+            if snap.live_rows or snap.kills or snap.segments:
+                mut = self._mutable_view(snap)
         if ooc is None:
             ooc = self.resident is None and self.shard_dirs is not None
         if ooc:
@@ -299,24 +653,40 @@ class DistributedEngine:
             opts = dict(ooc_opts or {})
             if share_gathers:
                 opts["share_gathers"] = True
-            return self._query_ooc(queries, k, g, visit_batch, opts)
+            return self._query_ooc(queries, k, g, visit_batch, opts, mut)
         if self.resident is None:
             raise ValueError("no resident shards: build() first")
         return self._query_resident(queries, k, g, visit_batch, sync_bsf,
-                                    share_gathers)
+                                    share_gathers, mut)
 
     def _query_resident(self, queries, k: int, g: Guarantee,
                         visit_batch: int, sync_bsf: bool,
-                        share_gathers: bool) -> QueryResult:
+                        share_gathers: bool,
+                        mut: Optional[_MutView] = None) -> QueryResult:
         """Algorithm 2 on every resident shard, then the reference's
         merge: the [S, B, k] answers laid out shard-major as [B, S*k],
-        sorted by distance with ties in position order, cut to k."""
-        q = torch.as_tensor(queries, device=self.resident[0].device)
-        runs = [Refinement(refine.ResidentSource(idx), q, k,
+        sorted by distance with ties in position order, cut to k. With
+        the write tier, each shard masks its tombstoned rows (a device
+        mask per shard, padded to its padded rows and kept until the kill
+        set moves), r_delta uses the joint N, and the segments and the
+        memtable are folded in after."""
+        dev = self.resident[0].device
+        q = torch.as_tensor(queries, device=dev)
+        dead = [None] * len(self.resident)
+        n_over = None
+        if mut is not None:
+            n_over = mut.joint_n
+            for si, idx in enumerate(self.resident):
+                unit = ("rshard", si)
+                if unit not in self._ids_host:  # one device read a shard
+                    self._ids_host[unit] = idx.ids.cpu().numpy()
+                dead[si] = self._unit_dead_dev(unit, 0, mut.snap,
+                                               idx.data.shape[0], dev)
+        runs = [Refinement(refine.ResidentSource(idx, dead[si]), q, k,
                            delta=g.delta, epsilon=g.epsilon,
                            nprobe=g.nprobe, visit_batch=visit_batch,
-                           share_gathers=share_gathers)
-                for idx in self.resident]
+                           share_gathers=share_gathers, n_override=n_over)
+                for si, idx in enumerate(self.resident)]
         if sync_bsf:
             # lockstep: after each step every lane stops against the
             # kth-best over all shards, which is no larger than its own,
@@ -337,7 +707,7 @@ class DistributedEngine:
         md = torch.stack([r.dists for r in res], 1).reshape(b, -1)
         mi = torch.stack([r.ids for r in res], 1).reshape(b, -1)
         o = torch.sort(md, dim=1, stable=True).indices[:, :k]
-        return QueryResult(
+        out = QueryResult(
             dists=md.gather(1, o), ids=mi.gather(1, o),
             leaves_visited=torch.stack([r.leaves_visited for r in res]).sum(
                 0, dtype=torch.int32),
@@ -345,6 +715,10 @@ class DistributedEngine:
                 0, dtype=torch.int32),
             lb_computed=sum(r.lb_computed for r in res),
             iterations=tuple(r.iterations for r in res))
+        if mut is not None:
+            out = self._fold_mutable(out, mut, q, k, g, visit_batch,
+                                     resident=True)
+        return out
 
     # ------------------------------------------------------------------
     def _copy_lock(self, d: str) -> threading.RLock:
@@ -409,11 +783,14 @@ class DistributedEngine:
         return cache
 
     def close(self) -> None:
-        """Release the out-of-core state: stop every prefetcher and drop
-        the warm caches and stores. Idempotent and thread-safe: the state
-        is detached under the lock and the prefetchers are joined outside
-        it (a query in flight keeps its cache and reads on demand once
-        its prefetcher stops). build() calls it first."""
+        """Release the out-of-core state: stop the compaction daemon and
+        every prefetcher and drop the warm caches and stores. Idempotent
+        and thread-safe: the state is detached under the lock and the
+        prefetchers are joined outside it (a query in flight keeps its
+        cache and reads on demand once its prefetcher stops). The write
+        tier's data survives (a later insert or enable_writes starts the
+        daemon again); build() calls it first and drops the tier."""
+        self._stop_compactor()
         with self._ooc_lock:
             caches = list(self._shard_caches.values())
             self._shard_caches.clear()
@@ -424,13 +801,18 @@ class DistributedEngine:
                 cache.prefetcher = None
 
     def _query_ooc(self, queries, k: int, g: Guarantee, visit_batch: int,
-                   opts: dict) -> QueryResult:
+                   opts: dict, mut: Optional[_MutView] = None
+                   ) -> QueryResult:
         """Serve the batch from the spilled stores: shard after shard,
         the search loop runs over its store under
         serve_shard_with_failover, and each answer is folded as it
         lands. Per shard the answer is the
         resident search's bit for bit on a lossless codec, and both
-        merges select the k smallest distances."""
+        merges select the k smallest distances. With the write tier, each
+        attempt masks the shard's tombstoned rows (one mask per shard,
+        shared by its byte-identical copies, padded to the store's padded
+        rows) and r_delta uses the joint N; the segments and the memtable
+        are folded in after the shards."""
         from repro_torch.serve import fault as sfault
         from repro_torch.store import search_ooc
 
@@ -462,8 +844,21 @@ class DistributedEngine:
                 cache = self._shard_cache(
                     d, store, b * visit_batch, cache_leaves,
                     prefetch_depth=prefetch_depth, prefetch=prefetch)
+                dead = n_over = None
+                if mut is not None:
+                    # a shard's copies are byte-identical (same ids), so
+                    # the mask is the shard's, shared by its copies
+                    unit = ("sshard", fctx.shard)
+                    if unit not in self._ids_host:
+                        self._ids_host[unit] = \
+                            store.resident.ids.cpu().numpy()
+                    dead = self._unit_dead_dev(unit, 0, mut.snap,
+                                               store.mmap.shape[0],
+                                               store.device)
+                    n_over = mut.joint_n
                 return search_ooc(store, q, k, g, visit_batch=visit_batch,
-                                  cache=cache, fault=fctx, **opts)
+                                  cache=cache, fault=fctx, dead=dead,
+                                  n_override=n_over, **opts)
 
         top_d = torch.full((b, k), float("inf"), device=dev)
         top_i = torch.full((b, k), -1, dtype=torch.int32, device=dev)
@@ -508,9 +903,13 @@ class DistributedEngine:
         stats.effective_delta = float(g.delta)
         if lost:
             self._degrade(stats, sorted(lost), infos, top_d, k, g)
-        return QueryResult(dists=top_d, ids=top_i, leaves_visited=leaves,
-                           rows_scanned=rows, lb_computed=lbs, stats=stats,
-                           iterations=tuple(iters))
+        out = QueryResult(dists=top_d, ids=top_i, leaves_visited=leaves,
+                          rows_scanned=rows, lb_computed=lbs, stats=stats,
+                          iterations=tuple(iters))
+        if mut is not None:
+            out = self._fold_mutable(out, mut, q, k, g, visit_batch,
+                                     resident=False)
+        return out
 
     def _degrade(self, stats: OocStats, lost, infos, top_d, k: int,
                  g: Guarantee) -> None:

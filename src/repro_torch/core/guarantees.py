@@ -60,6 +60,21 @@ def ng(nprobe: int = 1) -> Guarantee:
     return Guarantee(nprobe=nprobe).validate()
 
 
+def joint_n_total(base_n_total: int, frozen_dead: int,
+                  delta_live: int) -> int:
+    """The row count N that r_delta is evaluated at when the frozen store
+    is served with the write tier.
+
+    The live collection holds ``base - frozen_dead + delta_live`` rows,
+    but r_delta = F^-1(1 - delta^(1/N)) falls as N grows: counting too
+    few rows (ignoring inserts) would stop too early and break the delta
+    guarantee, while counting too many (ignoring deletes) only shrinks
+    the stop radius. So the joint N is the live count floored at the
+    frozen N."""
+    live = base_n_total - int(frozen_dead) + int(delta_live)
+    return max(int(base_n_total), live, 1)
+
+
 def effective_delta_after_loss(hist, kth_dists, n_lost: int, *,
                                delta: float = 1.0,
                                epsilon: float = 0.0) -> float:

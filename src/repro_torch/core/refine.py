@@ -188,6 +188,10 @@ class ScoreCtx(NamedTuple):
     ids: torch.Tensor               # [Npad] int32 row ids
     norms: Optional[torch.Tensor]   # [Npad] f32 squared row norms (raw)
     luts: Optional[torch.Tensor] = None  # [B, m, K] ADC tables (pq only)
+    # [Npad] bool row tombstones: True rows are superseded by the write
+    # tier (deleted or inserted again) and never surface from this frozen
+    # unit; None for a unit with nothing killed, at no cost
+    dead: Optional[torch.Tensor] = None
 
 
 class Gathered(NamedTuple):
@@ -218,8 +222,15 @@ def refine_step(ctx: ScoreCtx, pool: torch.Tensor, gather_idx: torch.Tensor,
 
     For share=True the caller passes the coop_mask'ed validity (the
     distinct-id precondition). Candidates are ids for raw rows and padded
-    row positions for pq; masked slots carry -1 in both."""
+    row positions for pq; masked slots carry -1 in both.
+
+    Tombstones (``ctx.dead``) are folded into validity before the
+    candidates are formed, so a dead row scores inf with candidate -1 in
+    every corner: it never enters a running top-k, and a pq re-rank never
+    reads it."""
     k = top_d.shape[1]
+    if ctx.dead is not None:
+        valid = valid & ~ctx.dead[row_idx]
     if pq:
         cand = torch.where(valid, row_idx, -1).to(torch.int32)
     else:
@@ -295,13 +306,15 @@ class LeafSource(Protocol):
 
 class ResidentSource:
     """The leaf source of a device-resident FrozenIndex: gathering is
-    device indexing into the index's rows."""
+    device indexing into the index's rows. ``dead`` ([Npad] bool on the
+    index's device, or None) masks tombstoned rows."""
 
     pq = False
     depth = 0
 
-    def __init__(self, index):
+    def __init__(self, index, dead: Optional[torch.Tensor] = None):
         self.index = index
+        self.dead = dead
 
     @property
     def resident(self):
@@ -309,7 +322,7 @@ class ResidentSource:
 
     def query_ctx(self, queries: torch.Tensor) -> ScoreCtx:
         return ScoreCtx(qf=queries.float(), ids=self.index.ids,
-                        norms=self.index.row_norms)
+                        norms=self.index.row_norms, dead=self.dead)
 
     def track_width(self, k: int) -> int:
         return k

@@ -83,14 +83,21 @@ class Refinement:
     fault: the injection hook (duck-typed; serve.fault.FaultContext in
     the engine): ``fault.check("gather")`` runs before every gather and
     ``fault.check("score")`` before every scoring step, where injected
-    faults fire and attempt deadlines are polled."""
+    faults fire and attempt deadlines are polled.
+
+    n_override: the row count r_delta is evaluated at, in place of the
+    index's ``n_total``: the write tier's joint live N
+    (core.guarantees.joint_n_total), which inserts raise. A stale,
+    smaller N would stop delta-epsilon lanes too early. The write tier's
+    tombstones reach the loop through the source (``src.query_ctx``)."""
 
     def __init__(self, src, queries: torch.Tensor, k: int, *,
                  delta: float = 1.0, epsilon: float = 0.0,
                  nprobe: Optional[int] = None, visit_batch: int = 1,
                  share_gathers: bool = False,
                  frontier: Optional[int] = None,
-                 stats: Optional[OocStats] = None, fault=None):
+                 stats: Optional[OocStats] = None, fault=None,
+                 n_override: Optional[int] = None):
         b = queries.shape[0]
         dev = queries.device
         index = src.resident
@@ -115,7 +122,8 @@ class Refinement:
         self.lookahead = min(la, F)
         self.eps_mult = torch.tensor((1.0 + epsilon) ** 2,
                                      dtype=torch.float32, device=dev)
-        rd = r_delta(index.hist, delta, index.n_total).to(dev)
+        rd = r_delta(index.hist, delta, index.n_total
+                     if n_override is None else n_override).to(dev)
         self.rd_sq = rd * rd
         self.max_rank = L if nprobe is None else min(nprobe, L)
 
@@ -261,28 +269,55 @@ def search_impl(index: FrozenIndex, queries: torch.Tensor, k: int, *,
                 delta: float = 1.0, epsilon: float = 0.0,
                 nprobe: Optional[int] = None, visit_batch: int = 1,
                 share_gathers: bool = False,
-                frontier: Optional[int] = None) -> SearchResult:
+                frontier: Optional[int] = None,
+                dead: Optional[torch.Tensor] = None,
+                n_override: Optional[int] = None) -> SearchResult:
     """Algorithm 2 over queries [B, n] already on the index's device:
-    :func:`refine_loop` over the index's rows."""
-    return refine_loop(refine.ResidentSource(index), queries, k,
+    :func:`refine_loop` over the index's rows. ``dead`` ([Npad] bool on
+    the index's device) masks tombstoned rows; ``n_override`` is
+    :class:`Refinement`'s."""
+    return refine_loop(refine.ResidentSource(index, dead), queries, k,
                        delta=delta, epsilon=epsilon, nprobe=nprobe,
                        visit_batch=visit_batch, share_gathers=share_gathers,
-                       frontier=frontier)
+                       frontier=frontier, n_override=n_override)
 
 
 def search(index: FrozenIndex, queries, k: int, g: Guarantee = EXACT, *,
            visit_batch: int = 1, share_gathers: bool = False,
-           frontier: Optional[int] = None,
+           frontier: Optional[int] = None, dead=None,
+           n_override: Optional[int] = None,
            device=device_mod.DEFAULT) -> SearchResult:
     """Answer k-NN queries [B, n] (array or tensor) under the guarantee
     ``g`` (core.guarantees: exact / epsilon / delta_epsilon / ng). Runs
-    on ``device``, where the index must live: the card by default."""
+    on ``device``, where the index must live: the card by default.
+
+    The write tier's hooks: ``dead`` is a bool mask over the index's
+    padded rows (shorter masks are padded with False), whose True rows
+    never surface; ``n_override`` is the live row count r_delta uses in
+    place of ``index.n_total``."""
     dev = index_device(index, device)
     g = g.validate()
     q = torch.as_tensor(queries, device=dev)
     return search_impl(index, q, k, delta=g.delta, epsilon=g.epsilon,
                        nprobe=g.nprobe, visit_batch=visit_batch,
-                       share_gathers=share_gathers, frontier=frontier)
+                       share_gathers=share_gathers, frontier=frontier,
+                       dead=pad_mask(dead, index.data.shape[0], dev),
+                       n_override=n_override)
+
+
+def pad_mask(dead, n_rows: int, device) -> Optional[torch.Tensor]:
+    """A tombstone mask (array or tensor, or None) as an [n_rows] bool
+    tensor on ``device``, padded with False: ``ScoreCtx.dead[row_idx]``
+    reads every padded row position. None stays None."""
+    if dead is None:
+        return None
+    m = torch.as_tensor(dead, dtype=torch.bool, device=device).reshape(-1)
+    if m.shape[0] > n_rows:
+        raise ValueError(f"tombstone mask of {m.shape[0]} rows for "
+                         f"{n_rows} padded rows")
+    if m.shape[0] < n_rows:
+        m = torch.cat([m, m.new_zeros(n_rows - m.shape[0])])
+    return m
 
 
 def brute_force(queries, data, k: int, *,

@@ -5,11 +5,9 @@ The port's copy of ``src/repro/core/spec.py``:
   IndexSpec   what to build: the method and its build params (leaf_cap
               and friends), everything that shapes the frozen artifact.
   StoreSpec   where and how to serve it: spill directory, leaf codec,
-              residency and replica count.
+              residency, replica count and the write tier's knobs.
 
-The reference's mutable-tier fields (``delta_max_rows``,
-``auto_compact``, ``compact_interval_s``) come with the port's write
-path, and its shims for the older loose keywords are not ported: the
+The reference's shims for the older loose keywords are not ported: the
 port has no caller of that spelling.
 """
 
@@ -43,21 +41,34 @@ class IndexSpec:
 
 @dataclasses.dataclass(frozen=True)
 class StoreSpec:
-    """Where and how the built shards are served:
+    """Where and how the built shards are served, and the write tier's
+    knobs:
 
       spill_dir        persist every shard as an on-disk store
-                       (spill_dir/shard_NNNN); None = resident only.
+                       (spill_dir/shard_NNNN) and the compacted delta
+                       segments under spill_dir/segments/; None =
+                       resident only.
       codec            the leaf payload's encoding ("f32", "bf16",
-                       "pq").
+                       "pq"), for shards and segments.
       keep_resident    keep the shards on the device (False requires
                        spill_dir: out-of-core serving only).
       replicas         on-disk copies per shard (failover).
+      delta_max_rows   live delta rows at which the compaction daemon
+                       freezes the memtable (writes always succeed; this
+                       bounds the brute-scored tier, not the write rate).
+      auto_compact     run the compaction daemon (started by
+                       ``engine.enable_writes``; ``engine.compact()``
+                       works either way).
+      compact_interval_s  the daemon's poll period.
     """
 
     spill_dir: Optional[str] = None
     codec: str = "f32"
     keep_resident: bool = True
     replicas: int = 1
+    delta_max_rows: int = 8192
+    auto_compact: bool = False
+    compact_interval_s: float = 0.05
 
     def validate(self) -> "StoreSpec":
         if self.replicas < 1:
@@ -66,4 +77,7 @@ class StoreSpec:
             raise ValueError("replicas > 1 requires spill_dir")
         if not self.keep_resident and self.spill_dir is None:
             raise ValueError("keep_resident=False requires spill_dir")
+        if self.delta_max_rows < 1:
+            raise ValueError(
+                f"delta_max_rows must be >= 1, got {self.delta_max_rows}")
         return self

@@ -85,15 +85,30 @@ def sq_l2(q: torch.Tensor, rows: torch.Tensor,
           row_norms: torch.Tensor) -> torch.Tensor:
     """Squared L2 with precomputed row norms, f32: rows [R, n] -> [B, R]
     (every row against every lane) or rows [B, M, n] -> [B, M] (per
-    lane, norms [B, M])."""
+    lane, norms [B, M]).
+
+    Per lane on the CPU, every cross term comes from one BLAS path:
+    torch's CPU ``bmm`` sums a product of fewer than 400 multiply-adds in
+    a plain loop and a larger one in BLAS, in another order, so a narrow
+    pool is padded with zero rows up to that size. A row then scores
+    alike in a leaf of any width and in the write tier's memtable, which
+    keeps frozen+delta answers equal to a rebuild's."""
     qf = q.float()
     qn = (qf * qf).sum(-1)[:, None]
     rf = rows.float()
     rn = row_norms.float()
     if rows.dim() == 2:
         return torch.clamp_min(qn - 2.0 * (qf @ rf.T) + rn[None, :], 0.0)
-    cross = torch.bmm(rf, qf[:, :, None])[:, :, 0]
+    b, m, n = rf.shape
+    if not rf.is_cuda and 0 < m * n < _CPU_BMM_BLAS_MIN:
+        pad = -(-_CPU_BMM_BLAS_MIN // n) - m
+        rf = torch.cat([rf, rf.new_zeros(b, pad, n)], 1)
+    cross = torch.bmm(rf, qf[:, :, None])[:, :m, 0]
     return torch.clamp_min(qn - 2.0 * cross + rn, 0.0)
+
+
+# the least multiply-adds of a CPU bmm product that torch hands to BLAS
+_CPU_BMM_BLAS_MIN = 400
 
 
 def _select_k_by_d(dists, ids, kk: int):

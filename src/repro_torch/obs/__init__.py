@@ -1,7 +1,8 @@
-"""The port's observability: the typed per-query out-of-core stats and
-the process-wide metrics registry."""
+"""The port's observability: the typed per-query out-of-core stats, the
+process-wide metrics registry and the lock-order recorder."""
 
+from .lockorder import LockOrderRecorder
 from .metrics import REGISTRY
 from .stats import OocStats
 
-__all__ = ["OocStats", "REGISTRY"]
+__all__ = ["LockOrderRecorder", "OocStats", "REGISTRY"]

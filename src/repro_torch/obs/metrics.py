@@ -1,12 +1,12 @@
-"""Process-wide metrics registry: labeled counters.
+"""Process-wide metrics registry: labeled counters and gauges.
 
-The port's copy of the counter half of ``src/repro/obs/metrics.py``. The
-registry is always on: host-side code increments labeled counters
-unconditionally, each update one attribute op under a lock, nanoseconds
-against the millisecond I/O and device steps it counts. Metrics are
-keyed by (name, sorted labels). Nothing here reads a clock. The
-reference's gauges and log-bucketed histograms come with the serving
-slice, the first code of the port that records one.
+The port's copy of the counters and gauges of
+``src/repro/obs/metrics.py``. The registry is always on: host-side code
+updates labeled metrics unconditionally, each update one attribute op,
+nanoseconds against the millisecond I/O and device steps it counts.
+Metrics are keyed by (name, sorted labels). Nothing here reads a clock.
+The reference's log-bucketed histograms come with the serving slice, the
+first code of the port that records one.
 
 Window semantics: counters are cumulative, and an owner that needs
 per-query windows calls ``mark()`` and reads ``since_mark``; the
@@ -52,6 +52,24 @@ class Counter:
         return self._value - self._mark
 
 
+class Gauge:
+    """Last-write-wins instantaneous value."""
+
+    __slots__ = ("name", "labels", "_value")
+
+    def __init__(self, name: str, labels: Tuple[Tuple[str, str], ...]):
+        self.name = name
+        self.labels = labels
+        self._value = 0.0
+
+    def set(self, v) -> None:
+        self._value = v
+
+    @property
+    def value(self):
+        return self._value
+
+
 class MetricsRegistry:
     """Get-or-create registry keyed by (name, sorted label kv-pairs).
     One process-wide instance (``REGISTRY``); tests may build private
@@ -59,16 +77,25 @@ class MetricsRegistry:
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
-        self._metrics: Dict[tuple, Counter] = {}   # guarded_by: _lock
+        self._metrics: Dict[tuple, object] = {}    # guarded_by: _lock
 
-    def counter(self, name: str, **labels) -> Counter:
+    def _get(self, cls, name: str, labels: dict):
         lbl = tuple(sorted((str(k), str(v)) for k, v in labels.items()))
         key = (name, lbl)
         with self._lock:
             m = self._metrics.get(key)
             if m is None:
-                m = self._metrics[key] = Counter(name, lbl)
+                m = self._metrics[key] = cls(name, lbl)
+            elif not isinstance(m, cls):
+                raise TypeError(f"metric {name!r} is a "
+                                f"{type(m).__name__}, not a {cls.__name__}")
             return m
+
+    def counter(self, name: str, **labels) -> Counter:
+        return self._get(Counter, name, labels)
+
+    def gauge(self, name: str, **labels) -> Gauge:
+        return self._get(Gauge, name, labels)
 
     def collect(self, prefix: Optional[str] = None):
         """All registered metric objects, optionally name-filtered."""

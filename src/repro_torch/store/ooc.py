@@ -36,7 +36,7 @@ import torch
 from repro_torch.core import refine
 from repro_torch.core.guarantees import EXACT, Guarantee
 from repro_torch.core.refine import INF, Gathered, ScoreCtx
-from repro_torch.core.search import SearchResult, refine_loop
+from repro_torch.core.search import SearchResult, pad_mask, refine_loop
 from repro_torch.core.summaries.pq import adc_lut_batch
 from repro_torch.obs import OocStats
 
@@ -53,16 +53,20 @@ class OocResult(NamedTuple):
 class CachedStoreSource:
     """LeafSource over a LeafStore: leaves reach the card through a
     DeviceLeafCache, ``gather`` maps a window to cache slots, and
-    ``prefetch`` hands the next windows to the cache's prefetcher."""
+    ``prefetch`` hands the next windows to the cache's prefetcher.
+    ``dead`` ([npad] bool on the store's device, or None) masks
+    tombstoned rows."""
 
     pq = False
 
     def __init__(self, store: LeafStore, cache: DeviceLeafCache, *,
-                 prefetch: bool = True, depth: int = 1):
+                 prefetch: bool = True, depth: int = 1,
+                 dead: Optional[torch.Tensor] = None):
         self.store = store
         self.cache = cache
         self.prefetch_enabled = prefetch
         self.depth = int(depth)
+        self.dead = dead
 
     @property
     def resident(self):
@@ -71,7 +75,7 @@ class CachedStoreSource:
     def query_ctx(self, queries: torch.Tensor) -> ScoreCtx:
         res = self.store.resident
         return ScoreCtx(qf=queries.float(), ids=res.ids,
-                        norms=res.row_norms)
+                        norms=res.row_norms, dead=self.dead)
 
     def track_width(self, k: int) -> int:
         return k
@@ -138,7 +142,8 @@ class PQSource(CachedStoreSource):
     def query_ctx(self, queries: torch.Tensor) -> ScoreCtx:
         return ScoreCtx(qf=queries.float(), ids=self.resident.ids,
                         norms=None,
-                        luts=adc_lut_batch(self.store.codebook, queries))
+                        luts=adc_lut_batch(self.store.codebook, queries),
+                        dead=self.dead)
 
     def track_width(self, k: int) -> int:
         return k * self.rerank
@@ -152,7 +157,9 @@ def _exact_rerank(store: LeafStore, qf: torch.Tensor, top_d, top_i,
     """Re-score the PQ candidate pool (padded row positions [B, kk]) in
     f32 against the raw rows of exact.bin and return the exact top-k
     (squared distances, ids) and the bytes read. Each distinct candidate
-    row is read once for the whole batch."""
+    row is read once for the whole batch. A position of -1 (a masked or
+    tombstoned slot, or an unfilled one) is never read and stays
+    (inf, -1)."""
     pos = top_i.cpu().numpy()
     uniq = np.unique(pos[pos >= 0])
     if uniq.size == 0:
@@ -177,12 +184,14 @@ def _exact_rerank(store: LeafStore, qf: torch.Tensor, top_d, top_i,
 
 
 def make_source(store: LeafStore, cache: DeviceLeafCache, *,
-                prefetch: bool = True, depth: int = 1, rerank: int = 4):
+                prefetch: bool = True, depth: int = 1, rerank: int = 4,
+                dead: Optional[torch.Tensor] = None):
     """PQSource for a codec="pq" store, CachedStoreSource otherwise."""
     if store.codec == "pq":
         return PQSource(store, cache, prefetch=prefetch, depth=depth,
-                        rerank=rerank)
-    return CachedStoreSource(store, cache, prefetch=prefetch, depth=depth)
+                        rerank=rerank, dead=dead)
+    return CachedStoreSource(store, cache, prefetch=prefetch, depth=depth,
+                             dead=dead)
 
 
 def search_ooc(store: LeafStore, queries, k: int, g: Guarantee = EXACT, *,
@@ -191,7 +200,8 @@ def search_ooc(store: LeafStore, queries, k: int, g: Guarantee = EXACT, *,
                cache_leaves: Optional[int] = None, prefetch: bool = True,
                share_gathers: bool = False, rerank: int = 4,
                frontier: Optional[int] = None,
-               prefetch_depth: int = 1, fault=None) -> OocResult:
+               prefetch_depth: int = 1, fault=None, dead=None,
+               n_override: Optional[int] = None) -> OocResult:
     """k-NN over a store opened with ``load_index(resident="summaries")``
     under the guarantee ``g``, on the store's device.
 
@@ -208,7 +218,11 @@ def search_ooc(store: LeafStore, queries, k: int, g: Guarantee = EXACT, *,
     is the injection hook (serve.fault.FaultContext), checked before
     every gather and score: an exception it raises leaves the cache
     consistent (no gather is half done) and its prefetcher running, so
-    the next search on the same cache starts clean."""
+    the next search on the same cache starts clean. ``dead`` and
+    ``n_override`` are the write tier's hooks: a bool mask over the
+    store's rows (array or tensor, padded with False to the store's
+    padded row count), whose True rows never surface, and the live row
+    count r_delta uses in place of the store's ``n_total``."""
     g = g.validate()
     res = store.resident
     q = torch.as_tensor(queries, device=store.device)
@@ -239,14 +253,15 @@ def search_ooc(store: LeafStore, queries, k: int, g: Guarantee = EXACT, *,
             stacklevel=2)
 
     src = make_source(store, cache, prefetch=prefetch, depth=depth,
-                      rerank=rerank)
+                      rerank=rerank, dead=pad_mask(dead, store.mmap.shape[0],
+                                                   store.device))
     stats = OocStats(codec=store.codec, share_gathers=bool(share_gathers),
                      prefetch_depth=depth, dataset_bytes=store.dataset_nbytes)
     try:
         result = refine_loop(src, q, k, delta=g.delta, epsilon=g.epsilon,
                              nprobe=g.nprobe, visit_batch=v,
                              share_gathers=share_gathers, frontier=frontier,
-                             stats=stats, fault=fault)
+                             stats=stats, fault=fault, n_override=n_override)
     finally:
         if own_prefetcher is not None:
             own_prefetcher.close()

@@ -335,3 +335,129 @@ def test_engine_owner_kill_fails_over_on_the_card(cuda, tmp_path):
     assert res.stats.failovers == 1 and not res.stats.degraded
     assert torch.equal(res.ids, clean.ids)
     assert torch.equal(res.dists, clean.dists)
+
+
+def _tombstoned_step(pattern, pq):
+    """One iteration's inputs to refine_step at the card's scale: 16 lanes
+    each pooling two leaves of 32 rows of length 256 (distinct rows), a
+    tombstone mask either killing lane 1's first leaf whole (``leaf``) or
+    all but 5 of the pool's 1024 rows (``sparse``: every lane has fewer
+    live slots than kk = 2k), and a running top-k with one entry."""
+    rng = np.random.default_rng(4)
+    b, m, n, k = 16, 32, 256, 10
+    r = b * 2 * m
+    rows = rng.normal(size=(r, n)).astype(np.float32)
+    ids = (rng.permutation(r) + 100).astype(np.int32)
+    ids[r - 3:] = -1
+    dead = np.zeros(r, bool)
+    if pattern == "leaf":
+        dead[2 * m:3 * m] = True
+    else:
+        dead[:] = True
+        dead[rng.choice(r, 5, replace=False)] = False
+    width = 2 * k if pq else k
+    top_d = np.full((b, width), np.inf, np.float32)
+    top_d[:, 0] = 0.5
+    top_i = np.full((b, width), -1, np.int32)
+    top_i[:, 0] = 50_000 + np.arange(b)
+    row_idx = np.arange(r).reshape(b, 2 * m)
+    pool = rng.integers(0, 256, size=(r, 16)).astype(np.uint8) if pq \
+        else rows
+    return dict(
+        q=rng.normal(size=(b, n)).astype(np.float32), ids=ids,
+        norms=(rows.astype(np.float64) ** 2).sum(1).astype(np.float32),
+        luts=rng.random(size=(b, 16, 256)).astype(np.float32) if pq
+        else None, dead=dead, pool=pool, row_idx=row_idx,
+        valid=ids[row_idx] >= 0, top_d=top_d, top_i=top_i)
+
+
+@pytest.mark.parametrize("pattern", ["leaf", "sparse"])
+@pytest.mark.parametrize("corner", ["coop_raw", "coop_pq", "solo_pq"])
+def test_tombstoned_refine_step_on_card(cuda, corner, pattern):
+    """refine_step with ScoreCtx.dead on the card (K4, K6, K5) against the
+    CPU's plain versions: a whole dead leaf and lanes with fewer live
+    slots than kk; no dead row surfaces and the (inf, -1) tail matches."""
+    from repro_torch.core import refine
+
+    pq = corner.endswith("pq")
+    share = corner.startswith("coop")
+    x = _tombstoned_step(pattern, pq)
+    kernel = {"coop_raw": ops.coop_score_select,
+              "coop_pq": ops.pq_adc_select,
+              "solo_pq": ops.pq_adc_batch}[corner]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = {key: None if v is None else torch.as_tensor(v, device=dev)
+             for key, v in x.items()}
+        ctx = refine.ScoreCtx(qf=t["q"], ids=t["ids"],
+                              norms=None if pq else t["norms"],
+                              luts=t["luts"], dead=t["dead"])
+        before = kernel.launches
+        out[dev] = refine.refine_step(
+            ctx, t["pool"], t["row_idx"], t["row_idx"], t["valid"],
+            t["top_d"], t["top_i"], share=share, pq=pq)
+        assert kernel.launches == before + (dev == "cuda")
+    (gd, gi), (wd, wi) = out["cuda"], out["cpu"]
+    if pq:  # ADC sums run left to right on both: bit-equal
+        assert torch.equal(gd.cpu(), wd) and torch.equal(gi.cpu(), wi)
+    else:
+        torch.testing.assert_close(gd.cpu(), wd, **TOL)
+        rows = torch.as_tensor(x["pool"]).double()
+        pos = torch.full((int(x["ids"].max()) + 1,), -1, dtype=torch.long)
+        real = x["ids"] >= 0
+        pos[torch.as_tensor(x["ids"][real]).long()] = torch.as_tensor(
+            np.flatnonzero(real))
+        qd = torch.as_tensor(x["q"]).double()
+
+        def dist(i):
+            p = pos[i.long().clamp(0, pos.shape[0] - 1)]
+            d = ((rows[p.clamp_min(0)] - qd[:, None, :]) ** 2).sum(-1)
+            return torch.where((i >= 0) & (i < 50_000) & (p >= 0), d,
+                               torch.zeros_like(d))
+
+        diff = gi.cpu() != wi
+        assert bool(((dist(gi.cpu()) - dist(wi)).abs()[diff]
+                     <= 1e-3).all())
+    dead_cand = x["row_idx"][x["dead"][x["row_idx"]]] if pq \
+        else x["ids"][x["dead"] & (x["ids"] >= 0)]
+    assert not np.isin(gi.cpu().numpy(), dead_cand).any()
+    if pattern == "sparse":
+        assert bool((gi[:, -1] == -1).all())
+        assert bool(torch.isinf(gd[:, -1]).all())
+
+
+@pytest.mark.parametrize("ooc", [False, True])
+def test_engine_with_writes_on_the_card_matches_the_cpu(cuda, tmp_path,
+                                                        ooc):
+    """The engine's write tier on the card answers as on the CPU, resident
+    and spilled: inserts, a whole leaf's worth of deletes, a reinsert, a
+    compaction into a segment, then more writes in the memtable."""
+    from repro_torch.core.engine import DistributedEngine
+    from repro_torch.core.spec import IndexSpec, StoreSpec
+
+    data = randomwalk.generate(seed=3, n_series=4096, series_len=256)
+    fresh = randomwalk.generate(seed=5, n_series=600, series_len=256)
+    q = queries.noisy_queries(data, 16)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        eng = DistributedEngine(shards=4, device=dev).build(
+            data, index=IndexSpec("dstree", leaf_cap=64),
+            store=StoreSpec(spill_dir=str(tmp_path / dev)))
+        try:
+            new = eng.insert(fresh[:400])
+            eng.delete(np.r_[np.arange(64), new[:7]])
+            eng.insert(fresh[400:401], ids=[100])
+            assert eng.compact()
+            eng.insert(fresh[401:])
+            eng.delete([200, int(new[300])])
+            res[dev] = eng.query(q, 10, G.exact(), ooc=ooc)
+        finally:
+            eng.close()
+    got, want = res["cuda"], res["cpu"]
+    # rows by global id: the base, then the inserts in id order
+    live = np.concatenate([data, fresh[:400], fresh[401:]])
+    live[100] = fresh[400]
+    torch.testing.assert_close(got.dists.cpu() ** 2, want.dists ** 2, **TOL)
+    _ties_only(got.ids, want.ids, live, q)
+    assert not np.isin(got.ids.cpu().numpy(),
+                       np.r_[np.arange(64), 200]).any()
