@@ -90,7 +90,30 @@ Phases, each of which fails the run by raising:
      segment within 120 s. Launch counts are zeroed before and read
      after; every kernel but K2 must have run, and the path's kernel
      inputs are held against the plain versions;
-  10. kernels at the main path's shapes: each kernel against its plain
+  10. the serving front on the ingest phase's engines (the resident one
+     with its write tier, the f32 spill opened again, the pq spill):
+     F, the resident engine's median exact time on 8 queries, scales the
+     deadline mix (none, 1.6 F, 0.8 F, 0.2 F: the exact, exact,
+     delta-epsilon and ng(26) tiers); R0 is the static front's rate on 16
+     requests queued at once. Open-loop points at 1 and 4 x R0 on the
+     static front (Scheduler.run_retrieval on one server thread) and on
+     ServeFront (depth cap 64), a burst of 96 back to back (cap 32), the
+     spill, share_gathers on the resident engine and on the pq spill
+     (whose top tier is eps = 1), then a write point (inserts, deletes
+     and probes through the write lane). Every request is answered once
+     or rejected with queue_full; exact answers are brute force's over
+     the live rows up to ties; the burst rejects and sheds one tier; each
+     probe finds its row and no answer holds an id deleted before its
+     submit (SERVE_POINTS and WRITE_* hold the counts). Concurrent
+     queries from 6 threads (6 plans of 2 queries: exact, eps = 1,
+     delta-epsilon, ng) equal serial ones bit for bit on the resident
+     engine and the spill; one traced spill group's
+     span tree carries its OocStats' bytes_read exactly and writes a
+     Chrome trace under build/. Latencies come from the port's
+     Histogram, numpy's quantiles beside them. Launch counts are zeroed
+     before and read after; K1, K4, lex_select and K6 must have run, and
+     the path's kernel inputs are held against the plain versions;
+  11. kernels at the main path's shapes: each kernel against its plain
      version, timed with CUDA events beside the plain version, one
      PyTorch library call where one computes the same function (for K3
      the cuBLAS expanded form; cdist beside it as ``cdist_ms``), and the
@@ -101,8 +124,8 @@ Phases, each of which fails the run by raising:
      the HNSW build's block, lex_select at kk = 1200 and 4096 and K1 at
      D = 64 are timed too.
 
-Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
-as its last line. Exits non-zero without a result when no CUDA device
+Prints a ``{"serving": ...}`` line, a ``{"kernels": [...]}`` line, then
+``{"ok": true, "device": ...}`` as its last line. Exits non-zero without a result when no CUDA device
 is present or the package is missing.
 """
 
@@ -114,6 +137,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -1384,7 +1408,8 @@ def phase_ingest(torch, S, G, ref, data, data_t, q, truth0, k, engines,
     query finds itself; a daemon (auto_compact) publishes a segment within
     a bounded wait. ``before`` maps (mode, guarantee) to the row's ms
     without writes; ``path`` holds the kernels' inputs. Returns (table
-    rows, timings, kernel inputs held)."""
+    rows, timings, kernel inputs held, the live rows: brute force over
+    them, ids, rows, positions by id, the re-inserted ids)."""
     from repro_torch.core.engine import DistributedEngine
     from repro_torch.core.metrics import workload_metrics
     from repro_torch.core.spec import IndexSpec, StoreSpec
@@ -1556,7 +1581,8 @@ def phase_ingest(torch, S, G, ref, data, data_t, q, truth0, k, engines,
         pos[ids_t] = torch.arange(ids_t.shape[0], device=dev)
         live.update(truth=truth, ids=ids_t[truth.ids.long()].to(torch.int32),
                     dist=sq_dist64(torch, q_t, live_rows, pos),
-                    n=int(ids_t.shape[0]))
+                    n=int(ids_t.shape[0]), rows=live_rows, pos=pos,
+                    re_ids=re_ids)
         print(f"  live rows: {live['n']} ({base_live.shape[0]} base, "
               f"{re_ids.shape[0]} re-inserted, {int(keep.sum())} inserted)")
 
@@ -1650,7 +1676,559 @@ def phase_ingest(torch, S, G, ref, data, data_t, q, truth0, k, engines,
               f"after {times['daemon_s']:.2f} s, rows found in it")
     finally:
         spill.close()
-    return table, times, held
+    return table, times, held, live
+
+
+# the deadline mix every serving point cycles through, in units of F (the
+# resident engine's exact time on 8 queries): none and 1.6 F map to the
+# exact tier, 0.8 F to delta-epsilon (0.99, eps 1), 0.2 F to ng(26), before
+# any queue wait spends the budget
+SERVE_MIX = (None, 1.6, 0.8, 0.2)
+SERVE_BATCH = 8
+SERVE_TIMEOUT_S = 600.0
+TIER_RANK = {"exact": 0, "epsilon": 0, "delta-epsilon": 1, "ng": 2}
+# R0's calibration requests, all queued at once
+SERVE_R0_REQUESTS = 16
+# name: (engine, front, rate in R0 or None for back to back, requests,
+# admission depth cap). The counts are an eighth of the first design's
+# (128 a point, 64 to calibrate): at F = 3.4-3.6 s that one took 752 s
+# on the H100 and a quarter of it 316 s (PERF.md section 6), most of
+# the smoke's limit on a slow host
+SERVE_POINTS = {
+    "static-1x": ("resident", "static", 1.0, 16, None),
+    "static-4x": ("resident", "static", 4.0, 16, None),
+    "cont-1x": ("resident", "cont", 1.0, 16, 64),
+    "cont-4x": ("resident", "cont", 4.0, 16, 64),
+    "burst": ("resident", "cont", None, 96, 32),
+    "spill": ("spill f32", "cont", 1.0, 8, 64),
+    "share": ("resident share", "cont", 1.0, 8, 64),
+    "pq-share": ("spill pq share", "cont", 1.0, 8, 64),
+}
+# the write point: every WRITE_EVERY requests one insert of WRITE_ROWS
+# fresh walks (probed once its ticket returns) and one delete of
+# WRITE_DELS live base ids
+WRITE_REQUESTS, WRITE_EVERY, WRITE_ROWS, WRITE_DELS = 16, 2, 256, 64
+# concurrent = serial: 6 plans of CONC_QUERIES queries each, serially,
+# then from 6 threads once
+CONC_QUERIES = 2
+
+
+class ShareGathers:
+    """The smoke's thin wrapper over an engine: every query with
+    share_gathers=True (the fronts pass only queries, k and g)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def query(self, q, k, g):
+        return self.engine.query(q, k, g, share_gathers=True)
+
+
+def print_serving_table(rows) -> None:
+    hdr = (f"{'point':10s} {'engine':15s} {'offered':>7s} {'answered':>8s} "
+           f"{'rejected':>8s} {'shed':>5s} {'rps':>7s} {'p50 ms':>9s} "
+           f"{'(numpy)':>9s} {'p99 ms':>9s} {'(numpy)':>9s} "
+           f"{'degraded':>8s}")
+    print(hdr)
+    print("-" * len(hdr))
+    for r in rows:
+        print(f"{r['point']:10s} {r['engine']:15s} {r['offered']:7d} "
+              f"{r['answered']:8d} {r['rejected']:8d} {r['shed']:5d} "
+              f"{r['rps']:7.2f} {r['p50']:9.1f} {r['np_p50']:9.1f} "
+              f"{r['p99']:9.1f} {r['np_p99']:9.1f} {r['degraded']:8.3f}")
+
+
+def phase_serving(torch, S, G, data_t, q, truth0, k, engines, live, path):
+    """The serving front on the ingest phase's engines: the resident one
+    with its write tier, the f32 spill opened again (no write tier: its
+    live rows are the base rows) and the pq spill. Calibrates F (median
+    ms of 5 serial exact queries of 8) and R0 (the static front's rate on
+    SERVE_R0_REQUESTS requests of the mix, all queued at once), then drives the
+    SERVE_POINTS open loop and the write point last. Every offered
+    request is answered once or rejected with queue_full; admission's
+    depth and the queue-depth gauge end at 0; exact answers return brute
+    force's ids over the engine's live rows (ties allowed) at its
+    distances; the burst rejects and sheds one tier; on the write point,
+    each probe finds its inserted row first and no answer holds an id
+    deleted before its request's submit. Then concurrent equals serial
+    on the resident engine and the spill, and one traced spill group's
+    span tree against its OocStats. ``path`` holds the kernels' inputs.
+    Returns (table rows, a dict of the other numbers, kernel inputs
+    held)."""
+    from repro_torch import obs
+    from repro_torch.clock import now
+    from repro_torch.core.engine import DistributedEngine
+    from repro_torch.core.spec import IndexSpec, StoreSpec
+    from repro_torch.data import randomwalk
+    from repro_torch.obs import REGISTRY, Histogram
+    from repro_torch.serve import (AdmissionController, Rejected, Request,
+                                   Scheduler, ServeFront,
+                                   guarantee_for_deadline)
+
+    dev = data_t.device
+    q_t = torch.as_tensor(q, device=dev)
+    n_series = data_t.shape[0]
+    held, table, info = [], [], {}
+    resident = engines["resident"]
+    spill = DistributedEngine.open_spill(
+        StoreSpec(spill_dir=str(engines["f32_dir"]), keep_resident=False),
+        index=IndexSpec("dstree", leaf_cap=256))
+    fronts = {"resident": resident, "spill f32": spill,
+              "resident share": ShareGathers(resident),
+              "spill pq share": ShareGathers(engines["pq"])}
+
+    def request(i):
+        """Request i of a point: query i (mod 100), deadline i of the mix
+        in units of F."""
+        m = SERVE_MIX[i % len(SERVE_MIX)]
+        return Request(uid=i, prompt=np.zeros(4, np.int32),
+                       deadline_ms=None if m is None else m * f_ms,
+                       series=q[i % q.shape[0]])
+
+    def paced(n, rate, submit_one):
+        """Open loop: request i at start + i / rate, whatever the server
+        does (None: back to back)."""
+        start = now()
+        for i in range(n):
+            if rate:
+                delay = start + i / rate - now()
+                if delay > 0:
+                    time.sleep(delay)
+            submit_one(i)
+
+    try:
+        # ---- calibration on the resident engine
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            res = resident.query(q[:8], k, G.exact())
+            res.ids.cpu()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        f_ms = float(np.median(ms))
+        gkw = {"full_budget_ms": f_ms}
+        mix = [guarantee_for_deadline(None if m is None else m * f_ms, **gkw)
+               for m in SERVE_MIX]
+        print(f"  F = {f_ms:.1f} ms (exact, 8 queries; runs "
+              f"{', '.join(f'{x:.1f}' for x in ms)}); the mix maps to "
+              + ", ".join(f"{g.kind}{'' if g.nprobe is None else g.nprobe}"
+                          for g in mix))
+        with path:
+            sched = Scheduler(max_batch=SERVE_BATCH)
+            for i in range(SERVE_R0_REQUESTS):
+                sched.submit(request(i))
+            t0 = now()
+            while (nb := sched.next_batch()) is not None:
+                sched.run_retrieval(resident, nb[1], k, **gkw)
+            r0 = SERVE_R0_REQUESTS / (now() - t0)
+        held.extend(path.check("serving calibration"))
+        info.update(f_ms=f_ms, r0=r0)
+        print(f"  R0 = {r0:.3f} requests/s (the static front on "
+              f"{SERVE_R0_REQUESTS} requests of the mix, queued at once)")
+
+        def serve_static(eng, n, rate, gkw):
+            sched = Scheduler(max_batch=SERVE_BATCH)
+            reqs, out, done_at, sizes, err = {}, {}, {}, [], []
+            finished = threading.Event()
+
+            def server():
+                try:
+                    while True:
+                        last = finished.is_set()
+                        nb = sched.next_batch()
+                        if nb is None:
+                            if last:
+                                return
+                            time.sleep(0.0005)
+                            continue
+                        got = sched.run_retrieval(eng, nb[1], k, **gkw)
+                        t = now()
+                        sizes.append(len(nb[1]))
+                        for uid, entry in got.items():
+                            if uid in out:
+                                raise AssertionError(f"{uid} answered twice")
+                            out[uid], done_at[uid] = entry, t
+                except BaseException as e:  # re-raised on the main thread
+                    err.append(e)
+
+            srv = threading.Thread(target=server, name="static-server")
+            srv.start()
+
+            def submit_one(i):
+                r = request(i)
+                reqs[i] = r
+                sched.submit(r)
+
+            t0 = now()
+            try:
+                paced(n, rate, submit_one)
+            finally:
+                finished.set()
+                srv.join(timeout=SERVE_TIMEOUT_S)
+            wall = now() - t0
+            if srv.is_alive() or err:
+                raise AssertionError(f"static front: {err or 'hung'}")
+            answers = {u: (reqs[u], dict(out[u], done_at=done_at[u]))
+                       for u in out}
+            return answers, {}, wall, {"static": (len(sizes),
+                                                  float(np.mean(sizes)))}
+
+        def serve_cont(eng, n, rate, depth, gkw, writes=None):
+            adm = AdmissionController(max_depth=depth)
+            front = ServeFront(eng, k, max_batch=SERVE_BATCH, admission=adm,
+                               guarantee_kw=gkw).start()
+            lanes = {m.labels: (m.count, m.sum) for m in
+                     REGISTRY.collect("serve.lane.batch_size")}
+            tickets, rejected = {}, {}
+
+            def submit(r):
+                try:
+                    tickets[r.uid] = (r, front.submit(r))
+                except Rejected as e:
+                    rejected[r.uid] = e.reason
+
+            def submit_one(i):
+                submit(request(i))
+                if writes is not None:
+                    writes(i, front, submit)
+
+            t0 = now()
+            try:
+                paced(n, rate, submit_one)
+                answers = {u: (r, t.result(timeout=SERVE_TIMEOUT_S))
+                           for u, (r, t) in tickets.items()}
+            finally:
+                front.stop(drain=True)
+            wall = now() - t0
+            if adm.depth or REGISTRY.gauge("serve.queue_depth").value:
+                raise AssertionError(f"admission depth {adm.depth}, gauge "
+                                     f"{REGISTRY.gauge('serve.queue_depth').value}"
+                                     " after the point")
+            sizes = {}
+            for m in REGISTRY.collect("serve.lane.batch_size"):
+                c0, s0 = lanes.get(m.labels, (0, 0.0))
+                if m.count > c0:
+                    sizes[dict(m.labels)["lane"]] = (m.count - c0,
+                                                     (m.sum - s0)
+                                                     / (m.count - c0))
+            return answers, rejected, wall, sizes
+
+        def check_exact(what, answers, truth_ids, truth_d, rows, pos):
+            got = [(qi, e) for qi, e in answers if e["kind"] == "exact"]
+            if not got:
+                return 0
+            qi = torch.as_tensor([g[0] for g in got], device=dev)
+            ids = torch.as_tensor(np.stack([e["ids"] for _, e in got]),
+                                  device=dev)
+            d = torch.as_tensor(np.stack([e["dists"] for _, e in got]),
+                                device=dev)
+            dist_close(torch, d ** 2, truth_d[qi] ** 2, what)
+            swaps = ties_only(torch, ids, truth_ids[qi],
+                              sq_dist64(torch, q_t[qi], rows, pos), what)
+            print(f"  {what}: {len(got)} exact answers are brute force's "
+                  f"({swaps} swaps of ties)")
+            return len(got)
+
+        def check_eps(what, answers, truth_d, eps):
+            got = [(qi, e) for qi, e in answers if e["kind"] == "epsilon"]
+            for qi, e in got:
+                want = truth_d[qi].cpu().numpy()
+                if not (e["dists"] <= (1 + eps) * want * (1 + 1e-4)
+                        + 1e-4).all():
+                    raise AssertionError(f"{what}: an epsilon answer breaks "
+                                         "its bound")
+            print(f"  {what}: {len(got)} epsilon answers within (1 + {eps})")
+
+        def run_point(name, eng_name, front, rate, n, depth, writes=None):
+            for c in REGISTRY.collect("serve.admission."):
+                c.mark()
+            rate_rps = None if rate is None else rate * r0
+            # the pq codec cannot honour exact (search_ooc warns): its top
+            # tier is eps = 1, as the engine phase's pq rows
+            pkw = dict(gkw, epsilon=1.0) if "pq" in eng_name else gkw
+            with path:
+                if front == "static":
+                    answers, rejected, wall, sizes = serve_static(
+                        fronts[eng_name], n, rate_rps, pkw)
+                else:
+                    answers, rejected, wall, sizes = serve_cont(
+                        fronts[eng_name], n, rate_rps, depth, pkw, writes)
+            held.extend(path.check(f"serving {name}"))
+            offered = n + (0 if writes is None else writes.probes)
+            errors = [u for u, (_, e) in answers.items() if "error" in e]
+            if errors:
+                raise AssertionError(f"serving {name}: error entries "
+                                     f"{[answers[u][1]['error'] for u in errors[:3]]}")
+            if len(answers) + len(rejected) != offered or set(answers) \
+                    & set(rejected):
+                raise AssertionError(f"serving {name}: {len(answers)} "
+                                     f"answered + {len(rejected)} rejected "
+                                     f"of {offered} offered")
+            if any(r != "queue_full" for r in rejected.values()):
+                raise AssertionError(f"serving {name}: reject reasons "
+                                     f"{set(rejected.values())}")
+            if front != "static":
+                n_acc = sum(c.since_mark for c in REGISTRY.collect(
+                    "serve.admission.accepted"))
+                n_rej = REGISTRY.counter("serve.admission.rejected",
+                                         reason="queue_full").since_mark
+                if (n_acc, n_rej) != (len(answers), len(rejected)):
+                    raise AssertionError(f"serving {name}: accepted {n_acc}"
+                                         f", rejected {n_rej} counted")
+            lat = [(e["done_at"] - r.submitted_at) * 1e3
+                   for r, e in answers.values()]
+            h = Histogram("smoke.serve.latency_ms", ())
+            for v in lat:
+                h.record(v)
+            shed = [e for _, e in answers.values() if e.get("shed")]
+            degraded = sum(
+                TIER_RANK[e["kind"]] > TIER_RANK[guarantee_for_deadline(
+                    r.deadline_ms, **pkw).kind]
+                for r, e in answers.values())
+            row = dict(point=name, engine=eng_name, offered=offered,
+                       answered=len(answers), rejected=len(rejected),
+                       shed=len(shed), rps=len(answers) / wall,
+                       p50=h.quantile(0.5), p99=h.quantile(0.99),
+                       np_p50=float(np.quantile(lat, 0.5, method="lower")),
+                       np_p99=float(np.quantile(lat, 0.99, method="lower")),
+                       degraded=degraded / max(len(answers), 1),
+                       wall_s=wall, batches=sizes)
+            table.append(row)
+            kinds = {}
+            for _, e in answers.values():
+                kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+            print(f"  serving {name}: {len(answers)} answered, "
+                  f"{len(rejected)} rejected, {len(shed)} shed in "
+                  f"{wall:.1f} s; kinds {kinds}; batches by lane (count x "
+                  "mean size) " + ", ".join(f"{ln} {c} x {m:.2f}" for ln, (
+                      c, m) in sorted(sizes.items())))
+            return answers, rejected, shed
+
+        live_truth, live_ids = live["truth"], live["ids"]
+        for name, (eng_name, front, rate, n, depth) in SERVE_POINTS.items():
+            answers, rejected, shed = run_point(name, eng_name, front, rate,
+                                                n, depth)
+            pairs = [(r.uid % q.shape[0], e) for r, e in answers.values()]
+            what = f"serving {name}"
+            if eng_name == "spill f32":
+                check_exact(what, pairs, truth0.ids, truth0.dists, data_t,
+                            torch.arange(n_series, device=dev))
+            elif eng_name == "spill pq share":
+                check_eps(what, pairs, live_truth.dists, 1.0)
+            else:
+                check_exact(what, pairs, live_ids, live_truth.dists,
+                            live["rows"], live["pos"])
+            if name == "burst":
+                if not rejected or not shed:
+                    raise AssertionError(f"serving burst: {len(rejected)} "
+                                         f"rejected, {len(shed)} shed")
+                below = {"exact": "delta-epsilon",
+                         "epsilon": "delta-epsilon",
+                         "delta-epsilon": "ng", "ng": "ng"}
+                for e in shed:
+                    if e["kind"] != below[e["nominal_kind"]]:
+                        raise AssertionError(
+                            f"serving burst: a shed {e['nominal_kind']} "
+                            f"answer reports {e['kind']}")
+                print(f"  serving burst: every shed answer one tier below "
+                      f"its drained tier (drained as "
+                      f"{sorted({e['nominal_kind'] for e in shed})})")
+
+        # ---- the write point, last: inserts, deletes and probes
+        new_rows = randomwalk.generate(
+            seed=13, n_series=WRITE_ROWS * WRITE_REQUESTS // WRITE_EVERY,
+            series_len=q.shape[1], start=1024)
+        cands = np.unique(live_ids.cpu().numpy())
+        cands = cands[(cands < n_series) & ~np.isin(cands, live["re_ids"])]
+        dels = np.random.default_rng(13).choice(
+            cands, WRITE_DELS * WRITE_REQUESTS // WRITE_EVERY, replace=False)
+
+        class Writes:
+            probes = WRITE_REQUESTS // WRITE_EVERY
+
+            def __init__(self):
+                self.inserts, self.deletes, self.probe_of = [], [], {}
+
+            def __call__(self, i, front, submit):
+                if i % WRITE_EVERY:
+                    return
+                j = i // WRITE_EVERY
+                rows = new_rows[j * WRITE_ROWS:(j + 1) * WRITE_ROWS]
+                ins = front.submit_write("insert", rows=rows).result(
+                    timeout=SERVE_TIMEOUT_S)
+                if "error" in ins:
+                    raise AssertionError(f"serving write: {ins['error']}")
+                self.inserts.append(ins)
+                uid = 10_000 + j
+                self.probe_of[uid] = int(ins["ids"][0])
+                submit(Request(uid=uid, prompt=np.zeros(4, np.int32),
+                               series=rows[0]))
+                self.deletes.append(front.submit_write(
+                    "delete", ids=dels[j * WRITE_DELS:(j + 1) * WRITE_DELS]))
+
+        writes = Writes()
+        answers, _, _ = run_point("write", "resident", "cont", 1.0,
+                                  WRITE_REQUESTS, WRITE_REQUESTS
+                                  + Writes.probes, writes)
+        deletes = [t.result(timeout=SERVE_TIMEOUT_S) for t in writes.deletes]
+        fresh_ms, visible_ms = [], []
+        for ins, (uid, gid) in zip(writes.inserts, writes.probe_of.items()):
+            r, e = answers[uid]
+            if int(e["ids"][0]) != gid or float(e["dists"][0]) ** 2 > 1e-3:
+                raise AssertionError(
+                    f"serving write: probe {uid} returned {int(e['ids'][0])}"
+                    f" at {float(e['dists'][0])}, not row {gid}")
+            fresh_ms.append(ins["latency_ms"])
+            visible_ms.append((e["done_at"] - ins["applied_at"]) * 1e3)
+        dead_hits = 0
+        for r, e in answers.values():
+            gone = [d["ids"] for d in deletes
+                    if d["applied_at"] < r.submitted_at]
+            if gone and np.isin(e["ids"], np.concatenate(gone)).any():
+                dead_hits += 1
+        if dead_hits:
+            raise AssertionError(f"serving write: {dead_hits} answers hold "
+                                 "an id deleted before their submit")
+        n_after = sum(1 for r, _ in answers.values()
+                      if any(d["applied_at"] < r.submitted_at
+                             for d in deletes))
+        info.update(fresh_ms=fresh_ms, visible_ms=visible_ms)
+        probe_d = max(float(answers[u][1]["dists"][0])
+                      for u in writes.probe_of)
+        print(f"  serving write: {len(writes.inserts)} inserts of "
+              f"{WRITE_ROWS} rows and {len(deletes)} deletes of {WRITE_DELS}"
+              f" ids through the write lane; every probe found its row "
+              f"first (distance at most {probe_d:.4g}); no "
+              f"deleted id in the {n_after} answers submitted after a delete;"
+              f" insert submit -> applied {np.median(fresh_ms):.2f} ms "
+              f"median ({max(fresh_ms):.2f} max), applied -> probe answered "
+              f"{np.median(visible_ms):.1f} ms median "
+              f"({max(visible_ms):.1f} max)")
+
+        # ---- concurrent equals serial, at full size
+        plans = [(0, G.exact()), (8, G.epsilon(1.0)),
+                 (16, G.delta_epsilon(0.99, 1.0)), (24, G.ng(8)),
+                 (4, G.exact()), (12, G.ng(4))]
+        w = CONC_QUERIES
+        for name, eng in (("resident", resident), ("spill f32", spill)):
+            t0 = time.perf_counter()
+            out, err = [None] * len(plans), []
+
+            def run(j, out=out, err=err, eng=eng):
+                try:
+                    i, g = plans[j]
+                    out[j] = eng.query(q[i:i + w], k, g)
+                except BaseException as e:  # re-raised below
+                    err.append(e)
+
+            with path:
+                serial = [eng.query(q[i:i + w], k, g) for i, g in plans]
+                ts = [threading.Thread(target=run, args=(j,))
+                      for j in range(len(plans))]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join(timeout=SERVE_TIMEOUT_S)
+            if err or any(t.is_alive() for t in ts):
+                raise AssertionError(f"serving concurrent {name}: "
+                                     f"{err or 'hung'}")
+            for j, (a, b) in enumerate(zip(out, serial)):
+                if not (torch.equal(a.ids, b.ids)
+                        and torch.equal(a.dists, b.dists)):
+                    raise AssertionError(f"serving concurrent {name}: plan "
+                                         f"{j} differs from its serial "
+                                         "answer")
+            held.extend(path.check(f"serving concurrent {name}"))
+            sec = time.perf_counter() - t0
+            print(f"  serving concurrent = serial on {name}: 6 plans of {w} "
+                  f"queries, serially then from 6 threads, bit-equal "
+                  f"({sec:.1f} s)")
+
+        # ---- one traced spill group: the span tree against its OocStats
+        obs.clear()
+        obs.enable()
+        try:
+            front = ServeFront(spill, k, max_batch=SERVE_BATCH,
+                               guarantee_kw=gkw)
+            ts = [front.submit(Request(uid=i, prompt=np.zeros(4, np.int32),
+                                       series=q[i])) for i in range(2)]
+            with path:
+                front.start()
+                try:
+                    outs = [t.result(timeout=SERVE_TIMEOUT_S) for t in ts]
+                finally:
+                    front.stop()
+        finally:
+            obs.disable()
+        held.extend(path.check("serving traced"))
+        prof = obs.last_profile("serve.retrieval_group")
+        st = outs[0]["stats"]
+        if prof is None or prof.attrs["requests"] != 2 or any(
+                "error" in o for o in outs):
+            raise AssertionError("serving traced: not one group of 2")
+        by_id = {sp.id: sp for sp in prof.spans}
+        parent_of = {"engine.query": "serve.retrieval_group",
+                     "engine.shard": "engine.query",
+                     "ooc.query": "engine.shard",
+                     "ooc.filter": "ooc.query", "ooc.iteration": "ooc.query",
+                     "ooc.finalize": "ooc.query",
+                     "ooc.gather": "ooc.iteration",
+                     "ooc.score": "ooc.iteration"}
+        names = {}
+        for sp in prof.spans:
+            names[sp.name] = names.get(sp.name, 0) + 1
+            want = parent_of.get(sp.name)
+            if want is not None and by_id[sp.parent].name != want:
+                raise AssertionError(f"serving traced: {sp.name} under "
+                                     f"{by_id[sp.parent].name}")
+        if names.get("engine.shard") != ENGINE_SHARDS or names.get(
+                "ooc.query") != ENGINE_SHARDS or not names.get(
+                "ooc.iteration") or names["ooc.iteration"] != names.get(
+                "ooc.gather") or names["ooc.gather"] != names.get(
+                "ooc.score"):
+            raise AssertionError(f"serving traced: spans {names}")
+        if prof.total("bytes_read") != st.bytes_read:
+            raise AssertionError(f"serving traced: bytes_read "
+                                 f"{prof.total('bytes_read')} in the spans, "
+                                 f"{st.bytes_read} in OocStats")
+        trace = Path(__file__).resolve().parent / "build" / \
+            "chip_smoke_serve_trace.json"
+        obs.dump_chrome_trace(str(trace))
+        evs = json.loads(trace.read_text())["traceEvents"]
+        if not evs or any(e["ph"] != "X" or e["dur"] < 0 for e in evs):
+            raise AssertionError("serving traced: a malformed Chrome event")
+        iters = [sp for sp in prof.spans if sp.name == "ooc.iteration"]
+        it_ids = {sp.id for sp in iters}
+        split = {"ooc.iteration": sum(sp.duration_ms for sp in iters)}
+        for sp in prof.spans:
+            if sp.parent in it_ids:
+                split[sp.name] = split.get(sp.name, 0.0) + sp.duration_ms
+        n_it = len(iters)
+        split = {name: ms / n_it for name, ms in split.items()}
+        split["rest"] = split["ooc.iteration"] - sum(
+            ms for name, ms in split.items() if name != "ooc.iteration")
+        info["trace_split"] = split
+        obs.clear()
+        spill.query(q[:2], k, G.exact())
+        if obs.tracer().spans():
+            raise AssertionError("serving traced: spans with tracing off")
+        print(f"  serving traced spill group (2 exact lanes, "
+              f"{prof.duration_ms:.1f} ms): spans {names}; bytes_read "
+              f"{st.bytes_read} in the spans and in OocStats; "
+              f"{len(evs)} Chrome events in {trace}; no span with tracing "
+              "off")
+        print(f"  one spilled f32 iteration, mean of {n_it} by span (host "
+              f"clock; the traced ooc.score waits for the device, ooc.gather "
+              f"does not): " + ", ".join(f"{name} {ms:.3f} ms"
+                                         for name, ms in split.items()))
+        rms = {dict(m.labels)["kind"]: m.quantiles((0.5, 0.99))
+               for m in REGISTRY.collect("serve.retrieval_ms")}
+        info["retrieval_ms"] = rms
+        print("  serve.retrieval_ms by kind: " + "; ".join(
+            f"{kind} p50 {v['p50']:.1f} p99 {v['p99']:.1f}"
+            for kind, v in sorted(rms.items())))
+    finally:
+        spill.close()
+    return table, info, held
 
 
 def main() -> int:
@@ -1834,10 +2412,21 @@ def main() -> int:
             fn.launches = 0
         t0 = time.perf_counter()
         before = {(r["mode"], r["guarantee"]): r["ms"] for r in eng_table}
-        ing_table, ing_times, held = phase_ingest(
+        ing_table, ing_times, ing_held, live = phase_ingest(
             torch, S, G, ref, data, data_t, q, truth, k, engines, before,
             PathInputs(torch, ops, ref, wrappers))
         ing_counts = {name: fn.launches for name, fn in wrappers.items()}
+        ing_s = time.perf_counter() - t0
+
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        srv_table, srv_info, srv_held = phase_serving(
+            torch, S, G, data_t, q, truth, k, engines, live,
+            PathInputs(torch, ops, ref, wrappers))
+        srv_counts = {name: fn.launches for name, fn in wrappers.items()}
+        srv_s = time.perf_counter() - t0
+        del live
     finally:
         if engines is not None:
             engines["resident"].close()
@@ -1847,7 +2436,7 @@ def main() -> int:
     del_rate = ing_times["deleted"] / max(ing_times["delete_s"], 1e-9)
     comp = ing_times["compact_s"]
     print(f"streaming ingest on the engine's shards "
-          f"({time.perf_counter() - t0:.1f} s): inserts {ins_rate:.0f} rows/s,"
+          f"({ing_s:.1f} s): inserts {ins_rate:.0f} rows/s,"
           f" deletes {del_rate:.0f} rows/s, compaction "
           f"{sum(comp) / len(comp):.2f} s each ({min(comp):.2f}-"
           f"{max(comp):.2f}), tombstone masks {ing_times['mask_ms']:.1f} ms, "
@@ -1856,14 +2445,40 @@ def main() -> int:
           " s:")
     print_ingest_table(ing_table)
     print(f"kernel inputs of the ingest path held against the plain "
-          f"versions ({len(held)}): " + "; ".join(
-              f"{key[0]} {key[1:]}" for key in held))
+          f"versions ({len(ing_held)}): " + "; ".join(
+              f"{key[0]} {key[1:]}" for key in ing_held))
     print(f"launches on the ingest path: {ing_counts}")
     missing = [name for name, c in ing_counts.items()
                if c == 0 and name != "paa"]
     if missing:
         raise AssertionError(f"kernels not launched on the ingest path: "
                              f"{missing}")
+
+    print(f"serving front on the ingest phase's engines ({srv_s:.1f} s; "
+          f"F {srv_info['f_ms']:.1f} ms, R0 {srv_info['r0']:.3f} requests/s,"
+          f" max batch {SERVE_BATCH}; latencies from the port's Histogram, "
+          "numpy's quantile (method lower) of the same values beside):")
+    print_serving_table(srv_table)
+    print(f"kernel inputs of the serving path held against the plain "
+          f"versions ({len(srv_held)}): " + "; ".join(
+              f"{key[0]} {key[1:]}" for key in srv_held))
+    print(f"launches on the serving path: {srv_counts}")
+    missing = [name for name in ("box_mindist", "coop_score_select",
+                                 "lex_select", "pq_adc_select")
+               if srv_counts[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the serving path: "
+                             f"{missing}")
+    print(json.dumps({"serving": {
+        "f_ms": srv_info["f_ms"], "r0_rps": srv_info["r0"],
+        "points": [{key: r[key] for key in (
+            "point", "engine", "offered", "answered", "rejected", "shed",
+            "rps", "p50", "p99", "np_p50", "np_p99", "degraded", "wall_s")}
+            for r in srv_table],
+        "fresh_ms": srv_info["fresh_ms"],
+        "visible_ms": srv_info["visible_ms"],
+        "retrieval_ms": srv_info["retrieval_ms"],
+        "iteration_split_ms": srv_info["trace_split"]}}))
 
     rows = kernel_rows(torch, ops, ref, build, data_t, q_t, built["isax2+"],
                        built["va+file"], k, counts, pq_in)
@@ -1873,7 +2488,8 @@ def main() -> int:
             "out_of_core": ooc_counts[r["name"]],
             "baselines": base_counts[r["name"]],
             "engine": eng_counts[r["name"]],
-            "ingest": ing_counts[r["name"]]}
+            "ingest": ing_counts[r["name"]],
+            "serving": srv_counts[r["name"]]}
     shapes = shape_rows(torch, ops, ref, data_t, q_t)
     for r in shapes:
         print(f"  {r['name']} at {r['shape']}: {r['ms']:.4f} ms, bound "

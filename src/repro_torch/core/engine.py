@@ -56,6 +56,13 @@ rows. Compaction freezes the memtable into an on-disk segment
 (spill_dir/segments/writer-*/seg_NNNN, in the base codec), by hand or on
 a daemon thread (``StoreSpec.auto_compact``) that polls with
 ``Event.wait``.
+
+With tracing on (``repro_torch.obs``) a query is an ``engine.query``
+span (``path`` resident, resident+delta or ooc; a traced resident query
+reads its visit totals back, which waits for the device); out of core it
+holds one ``engine.shard`` span per shard served, over that shard's
+``ooc.query``, and a compaction is a ``delta.compact`` span, the
+reference's taxonomy (docs/OBSERVABILITY.md).
 """
 
 from __future__ import annotations
@@ -72,6 +79,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.obs import REGISTRY, OocStats
 
@@ -426,12 +434,13 @@ class DistributedEngine:
         batch = delta.begin_freeze()
         if batch is None:
             return False
-        try:
-            seg = self._build_segment(batch)
-        except BaseException:  # re-raised: the fold-back must run even for KeyboardInterrupt or SystemExit, or the frozen batch's writes would be lost
-            delta.abort_freeze()
-            raise
-        delta.publish_segment(seg)
+        with obs.span("delta.compact", rows=int(batch.ids.shape[0])):
+            try:
+                seg = self._build_segment(batch)
+            except BaseException:  # re-raised: the fold-back must run even for KeyboardInterrupt or SystemExit, or the frozen batch's writes would be lost
+                delta.abort_freeze()
+                raise
+            delta.publish_segment(seg)
         return True
 
     def _segment_codec(self) -> str:
@@ -656,8 +665,22 @@ class DistributedEngine:
             return self._query_ooc(queries, k, g, visit_batch, opts, mut)
         if self.resident is None:
             raise ValueError("no resident shards: build() first")
-        return self._query_resident(queries, k, g, visit_batch, sync_bsf,
-                                    share_gathers, mut)
+        if not obs.enabled():
+            return self._query_resident(queries, k, g, visit_batch,
+                                        sync_bsf, share_gathers, mut)
+        # traced: the visit totals are read back, which waits for the
+        # device, so the span covers the query's device work
+        attrs = {} if mut is None else dict(
+            delta_rows=mut.snap.live_rows, segments=len(mut.snap.segments))
+        with obs.span("engine.query",
+                      path="resident" if mut is None else "resident+delta",
+                      lanes=len(queries), k=k, shards=len(self.resident),
+                      **attrs) as sp:
+            out = self._query_resident(queries, k, g, visit_batch, sync_bsf,
+                                       share_gathers, mut)
+            sp.set(leaves_visited=int(out.leaves_visited.sum()),
+                   rows_scanned=int(out.rows_scanned.sum()))
+        return out
 
     def _query_resident(self, queries, k: int, g: Guarantee,
                         visit_batch: int, sync_bsf: bool,
@@ -856,53 +879,65 @@ class DistributedEngine:
                                                store.mmap.shape[0],
                                                store.device)
                     n_over = mut.joint_n
-                return search_ooc(store, q, k, g, visit_batch=visit_batch,
-                                  cache=cache, fault=fctx, dead=dead,
-                                  n_override=n_over, **opts)
+                # the child ooc.query span carries the shard's bytes_read
+                with obs.span("engine.shard", shard=fctx.shard,
+                              copy=fctx.replica):
+                    return search_ooc(store, q, k, g,
+                                      visit_batch=visit_batch, cache=cache,
+                                      fault=fctx, dead=dead,
+                                      n_override=n_over, **opts)
 
-        top_d = torch.full((b, k), float("inf"), device=dev)
-        top_i = torch.full((b, k), -1, dtype=torch.int32, device=dev)
-        leaves = torch.zeros(b, dtype=torch.int32, device=dev)
-        rows = torch.zeros(b, dtype=torch.int32, device=dev)
-        lbs = 0
-        iters = [0] * n_sh
-        per_shard, infos, lost = [], [], []
-        for si in range(n_sh):
-            copies = replica_dirs[si]
-            # round-robin ownership: shard si's owner is copy si % R, and
-            # failover walks the other copies in order
-            order = tuple(copies[(si + j) % len(copies)]
-                          for j in range(len(copies)))
-            try:
-                out, info = sfault.serve_shard_with_failover(
-                    attempt, shard=si, replica_dirs=order, policy=policy,
-                    breaker=breaker, injector=injector)
-            except sfault.ShardLost:
-                lost.append(si)
-                continue
-            out.stats.retries = info.retries
-            out.stats.failovers = info.failovers
-            REGISTRY.counter("engine.shard.bytes_read", shard=str(si)).inc(
-                out.stats.bytes_read)
-            r = out.result
-            # ids are disjoint across shards: the unique merge is used for
-            # its (d, id)-lex selection
-            top_d, top_i = ops.topk_merge_unique(r.dists, r.ids, top_d,
-                                                 top_i)
-            leaves += r.leaves_visited
-            rows += r.rows_scanned
-            lbs += r.lb_computed
-            iters[si] = r.iterations
-            per_shard.append(out.stats)
-            infos.append(info)
-        if len(lost) == n_sh:
-            raise sfault.ShardLost(-1, RuntimeError(
-                f"every shard lost ({sorted(lost)}): no surviving answer "
-                "to degrade to"))
-        stats = OocStats.aggregate(per_shard)
-        stats.effective_delta = float(g.delta)
-        if lost:
-            self._degrade(stats, sorted(lost), infos, top_d, k, g)
+        # the span holds the frozen shards' fold; the write tier's fold
+        # follows it, as in the reference
+        with obs.span("engine.query", path="ooc", lanes=b, k=k,
+                      shards=n_sh) as root:
+            top_d = torch.full((b, k), float("inf"), device=dev)
+            top_i = torch.full((b, k), -1, dtype=torch.int32, device=dev)
+            leaves = torch.zeros(b, dtype=torch.int32, device=dev)
+            rows = torch.zeros(b, dtype=torch.int32, device=dev)
+            lbs = 0
+            iters = [0] * n_sh
+            per_shard, infos, lost = [], [], []
+            for si in range(n_sh):
+                copies = replica_dirs[si]
+                # round-robin ownership: shard si's owner is copy si % R, and
+                # failover walks the other copies in order
+                order = tuple(copies[(si + j) % len(copies)]
+                              for j in range(len(copies)))
+                try:
+                    out, info = sfault.serve_shard_with_failover(
+                        attempt, shard=si, replica_dirs=order, policy=policy,
+                        breaker=breaker, injector=injector)
+                except sfault.ShardLost:
+                    lost.append(si)
+                    continue
+                out.stats.retries = info.retries
+                out.stats.failovers = info.failovers
+                REGISTRY.counter("engine.shard.bytes_read", shard=str(si)).inc(
+                    out.stats.bytes_read)
+                r = out.result
+                # ids are disjoint across shards: the unique merge is used for
+                # its (d, id)-lex selection
+                top_d, top_i = ops.topk_merge_unique(r.dists, r.ids, top_d,
+                                                     top_i)
+                leaves += r.leaves_visited
+                rows += r.rows_scanned
+                lbs += r.lb_computed
+                iters[si] = r.iterations
+                per_shard.append(out.stats)
+                infos.append(info)
+            if len(lost) == n_sh:
+                raise sfault.ShardLost(-1, RuntimeError(
+                    f"every shard lost ({sorted(lost)}): no surviving answer "
+                    "to degrade to"))
+            stats = OocStats.aggregate(per_shard)
+            stats.effective_delta = float(g.delta)
+            if lost:
+                self._degrade(stats, sorted(lost), infos, top_d, k, g)
+                root.set(degraded=True, shards_lost=stats.shards_lost,
+                         effective_delta=stats.effective_delta)
+            root.set(bytes_read_total=stats.bytes_read,
+                     iterations=stats.iterations)
         out = QueryResult(dists=top_d, ids=top_i, leaves_visited=leaves,
                           rows_scanned=rows, lb_computed=lbs, stats=stats,
                           iterations=tuple(iters))

@@ -35,8 +35,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch import obs
 from repro_torch.kernels import ops
-
 from repro_torch.obs import OocStats
 
 from . import refine
@@ -294,15 +294,30 @@ def search(index: FrozenIndex, queries, k: int, g: Guarantee = EXACT, *,
     The write tier's hooks: ``dead`` is a bool mask over the index's
     padded rows (shorter masks are padded with False), whose True rows
     never surface; ``n_override`` is the live row count r_delta uses in
-    place of ``index.n_total``."""
+    place of ``index.n_total``.
+
+    With tracing on (``repro_torch.obs``) the call is a ``core.search``
+    span, which reads the visit totals back and so waits for the device;
+    untraced calls pay one bool check."""
     dev = index_device(index, device)
     g = g.validate()
     q = torch.as_tensor(queries, device=dev)
-    return search_impl(index, q, k, delta=g.delta, epsilon=g.epsilon,
-                       nprobe=g.nprobe, visit_batch=visit_batch,
-                       share_gathers=share_gathers, frontier=frontier,
-                       dead=pad_mask(dead, index.data.shape[0], dev),
-                       n_override=n_override)
+
+    def run():
+        return search_impl(index, q, k, delta=g.delta, epsilon=g.epsilon,
+                           nprobe=g.nprobe, visit_batch=visit_batch,
+                           share_gathers=share_gathers, frontier=frontier,
+                           dead=pad_mask(dead, index.data.shape[0], dev),
+                           n_override=n_override)
+
+    if not obs.enabled():
+        return run()
+    with obs.span("core.search", lanes=q.shape[0], k=k,
+                  leaves=index.num_leaves) as sp:
+        res = run()
+        sp.set(leaves_visited=int(res.leaves_visited.sum()),
+               rows_scanned=int(res.rows_scanned.sum()))
+    return res
 
 
 def pad_mask(dead, n_rows: int, device) -> Optional[torch.Tensor]:

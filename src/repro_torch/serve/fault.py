@@ -21,12 +21,13 @@ between the engine's shard owners and the injection points of
                     replica in attempt order, backoff between attempts,
                     ShardLost when every copy is exhausted.
 
-The port reads no clock. A deadline and a cooldown are each an
-:class:`Expiry`: a timer that sets an event when its time is up, which
-``check`` and ``allow`` read. ``TIMER`` is the timer factory
-(``threading.Timer``); a test replaces it to expire a deadline or a
-cooldown when it chooses. The reference's ``fault.failover_latency_ms``
-histogram, the one measure that needs elapsed time, is not kept.
+A deadline and a cooldown are each an :class:`Expiry`: a timer that
+sets an event when its time is up, which ``check`` and ``allow`` read.
+``TIMER`` is the timer factory (``threading.Timer``); a test replaces it
+to expire a deadline or a cooldown when it chooses. Elapsed time is
+read only for the ``fault.failover_latency_ms{shard}`` histogram (first
+failure to the success on another attempt), on the port's one clock
+(``repro_torch.clock.now``).
 
 Counters: ``fault.attempt_failed``, ``fault.retries``,
 ``fault.failovers``, ``fault.shard_lost``, ``fault.breaker_open`` and
@@ -40,6 +41,7 @@ import threading
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
+from repro_torch.clock import now
 from repro_torch.fault import FaultInjected, FaultInjector  # noqa: F401
 from repro_torch.obs import REGISTRY
 
@@ -206,6 +208,7 @@ def serve_shard_with_failover(
     policy = policy or RetryPolicy()
     n_attempts = max(int(policy.max_attempts), len(replica_dirs))
     label = str(shard)
+    first_failure_t: Optional[float] = None
     cause: Optional[BaseException] = None
     failed = 0
     for attempt in range(n_attempts):
@@ -229,6 +232,8 @@ def serve_shard_with_failover(
         except Exception as e:
             failed += 1
             cause = e
+            if first_failure_t is None:
+                first_failure_t = now()
             if breaker is not None:
                 breaker.record_failure((shard, d))
             REGISTRY.counter("fault.attempt_failed", shard=label).inc()
@@ -246,6 +251,10 @@ def serve_shard_with_failover(
                               served_dir=d, served_replica=pos)
         if pos != 0:
             REGISTRY.counter("fault.failovers", shard=label).inc()
+        if first_failure_t is not None:
+            REGISTRY.histogram("fault.failover_latency_ms",
+                               shard=label).record(
+                                   (now() - first_failure_t) * 1e3)
         return result, info
     REGISTRY.counter("fault.shard_lost", shard=label).inc()
     raise ShardLost(shard, cause)

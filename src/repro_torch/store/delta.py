@@ -47,6 +47,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.obs import REGISTRY
 
@@ -281,16 +282,17 @@ def search_snapshot(snap: DeltaSnapshot, queries: torch.Tensor, k: int,
     if snap.live_rows == 0:
         return top_d, top_i
     m = snap.live_rows
-    cand = torch.as_tensor(snap.ids, device=dev)[None, :].expand(b, m)
-    rows = torch.as_tensor(snap.rows, device=dev)
-    if codec == "pq":
-        diff = rows[None] - qf[:, None, :]
-        d = (diff * diff).sum(-1)
-    else:
-        if codec == "bf16":
-            rows = rows.to(torch.bfloat16)
-        # per lane, as refine_step scores a leaf's rows
-        d = ops.sq_l2(qf, rows[None].expand(b, m, -1),
-                      ops.row_sq_norms(rows)[None].expand(b, m))
-    top_d, top_i = ops.topk_merge(d, cand, top_d, top_i)
+    with obs.span("delta.search", lanes=b, rows=m):
+        cand = torch.as_tensor(snap.ids, device=dev)[None, :].expand(b, m)
+        rows = torch.as_tensor(snap.rows, device=dev)
+        if codec == "pq":
+            diff = rows[None] - qf[:, None, :]
+            d = (diff * diff).sum(-1)
+        else:
+            if codec == "bf16":
+                rows = rows.to(torch.bfloat16)
+            # per lane, as refine_step scores a leaf's rows
+            d = ops.sq_l2(qf, rows[None].expand(b, m, -1),
+                          ops.row_sq_norms(rows)[None].expand(b, m))
+        top_d, top_i = ops.topk_merge(d, cand, top_d, top_i)
     return torch.sqrt(top_d), top_i

@@ -23,6 +23,13 @@ Each iteration the source reads the window's leaf ids to the host,
 makes those leaves cache-resident (one batched upload), and schedules
 the next ``prefetch_depth`` windows on the prefetcher, so the disk reads
 overlap the scoring.
+
+With tracing on (``repro_torch.obs``), a search is an ``ooc.query`` span
+over ``ooc.filter``, one ``ooc.iteration`` per step (each holding its
+``ooc.gather`` and ``ooc.score``) and ``ooc.finalize``, the reference's
+taxonomy. The root's attributes are set from the same OocStats the
+caller gets; a traced phase synchronizes the device before its span
+closes. With tracing off each site costs one bool check.
 """
 
 from __future__ import annotations
@@ -33,10 +40,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import refine
 from repro_torch.core.guarantees import EXACT, Guarantee
 from repro_torch.core.refine import INF, Gathered, ScoreCtx
-from repro_torch.core.search import SearchResult, pad_mask, refine_loop
+from repro_torch.core.search import Refinement, SearchResult, pad_mask
 from repro_torch.core.summaries.pq import adc_lut_batch
 from repro_torch.obs import OocStats
 
@@ -88,14 +96,23 @@ class CachedStoreSource:
         leaf_h = leaf.cpu().numpy()
         ok_h = ok.cpu().numpy()
         needed = leaf_h[ok_h]
-        slots = self.cache.get_slots(needed.tolist())
-        slot_h = np.zeros(leaf_h.shape, np.int64)
-        slot_h[ok_h] = slots
-        dev = leaf.device
-        gi = (torch.as_tensor(slot_h, device=dev)[:, :, None] * m
-              + torch.arange(m, device=dev)).reshape(leaf.shape[0], -1)
-        row_idx, valid = refine.candidate_layout(
-            self.resident.offsets, leaf, ok, m, self.store.mmap.shape[0] - 1)
+        with obs.span("ooc.gather") as sp:
+            # demand reads only: the prefetcher lands its bytes
+            # concurrently, so the root span carries the total
+            traced = obs.enabled()
+            pre = self.cache.stats().bytes_read_sync if traced else 0
+            slots = self.cache.get_slots(needed.tolist())
+            slot_h = np.zeros(leaf_h.shape, np.int64)
+            slot_h[ok_h] = slots
+            dev = leaf.device
+            gi = (torch.as_tensor(slot_h, device=dev)[:, :, None] * m
+                  + torch.arange(m, device=dev)).reshape(leaf.shape[0], -1)
+            row_idx, valid = refine.candidate_layout(
+                self.resident.offsets, leaf, ok, m,
+                self.store.mmap.shape[0] - 1)
+            if traced:
+                sp.set(bytes_read_sync=(self.cache.stats().bytes_read_sync
+                                        - pre))
         return Gathered(pool=self.cache.pool(), gather_idx=gi,
                         row_idx=row_idx, valid=valid)
 
@@ -117,9 +134,13 @@ class CachedStoreSource:
                 pf.schedule(nxt)
 
     def score(self, ctx, g, valid, top_d, top_i, *, share):
-        return refine.refine_step(ctx, g.pool, g.gather_idx, g.row_idx,
-                                  valid, top_d, top_i, share=share,
-                                  pq=self.pq)
+        with obs.span("ooc.score"):
+            out = refine.refine_step(ctx, g.pool, g.gather_idx, g.row_idx,
+                                     valid, top_d, top_i, share=share,
+                                     pq=self.pq)
+            if obs.enabled():
+                _sync(out[0])
+        return out
 
     def finalize(self, ctx, top_d, top_i, k: int):
         return top_d, top_i, 0
@@ -181,6 +202,12 @@ def _exact_rerank(store: LeafStore, qf: torch.Tensor, top_d, top_i,
                        -1)
     o = torch.sort(d, dim=1, stable=True).indices[:, :k]
     return d.gather(1, o), cids.gather(1, o), rerank_bytes
+
+
+def _sync(t: torch.Tensor) -> None:
+    """Wait for the device work behind ``t`` (a traced span covers it)."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
 
 
 def make_source(store: LeafStore, cache: DeviceLeafCache, *,
@@ -257,24 +284,54 @@ def search_ooc(store: LeafStore, queries, k: int, g: Guarantee = EXACT, *,
                                                    store.device))
     stats = OocStats(codec=store.codec, share_gathers=bool(share_gathers),
                      prefetch_depth=depth, dataset_bytes=store.dataset_nbytes)
-    try:
-        result = refine_loop(src, q, k, delta=g.delta, epsilon=g.epsilon,
-                             nprobe=g.nprobe, visit_batch=v,
-                             share_gathers=share_gathers, frontier=frontier,
-                             stats=stats, fault=fault, n_override=n_override)
-    finally:
-        if own_prefetcher is not None:
-            own_prefetcher.close()
-            cache.prefetcher = None
-    cs = cache.stats()
-    for name in ("capacity_leaves", "hits", "hits_distinct", "misses",
-                 "hit_rate", "hit_rate_distinct", "bytes_read_sync",
-                 "bytes_h2d", "prefetch_hits"):
-        setattr(stats, name, getattr(cs, name))
-    # every disk byte once: demand reads, the prefetcher's, the re-rank's
-    stats.bytes_read = cs.bytes_read_sync + stats.bytes_read_rerank
-    if pf_used is not None:
-        stats.prefetch_bytes_read = pf_used.bytes_read
-        stats.prefetch_leaves_read = pf_used.leaves_read
-        stats.bytes_read += pf_used.bytes_read
+    traced = obs.enabled()
+    with obs.span("ooc.query", codec=store.codec, lanes=b, k=k,
+                  guarantee=g.kind, share_gathers=bool(share_gathers)) as root:
+        try:
+            # core.search.refine_loop, stepped here so that each phase is
+            # a span; the construction runs the filter
+            with obs.span("ooc.filter", leaves=L, lanes=b):
+                run = Refinement(src, q, k, delta=g.delta, epsilon=g.epsilon,
+                                 nprobe=g.nprobe, visit_batch=v,
+                                 share_gathers=share_gathers,
+                                 frontier=frontier, stats=stats, fault=fault,
+                                 n_override=n_override)
+                if traced:
+                    _sync(run.lb_sq)
+            while run.go:
+                with obs.span("ooc.iteration", iter=run.iterations):
+                    run.step()
+            with obs.span("ooc.finalize") as f_span:
+                result = run.finish()
+                if traced:
+                    _sync(result.dists)
+                    # the root owns the subtree's one "bytes_read"
+                    f_span.set(bytes_read_rerank=stats.bytes_read_rerank)
+        finally:
+            if own_prefetcher is not None:
+                own_prefetcher.close()
+                cache.prefetcher = None
+        cs = cache.stats()
+        for name in ("capacity_leaves", "hits", "hits_distinct", "misses",
+                     "hit_rate", "hit_rate_distinct", "bytes_read_sync",
+                     "bytes_h2d", "prefetch_hits"):
+            setattr(stats, name, getattr(cs, name))
+        # every disk byte once: demand reads, the prefetcher's, the
+        # re-rank's
+        stats.bytes_read = cs.bytes_read_sync + stats.bytes_read_rerank
+        if pf_used is not None:
+            stats.prefetch_bytes_read = pf_used.bytes_read
+            stats.prefetch_leaves_read = pf_used.leaves_read
+            stats.bytes_read += pf_used.bytes_read
+        # the same OocStats instance feeds the span and the caller
+        root.set(bytes_read=stats.bytes_read, bytes_h2d=stats.bytes_h2d,
+                 iterations=stats.iterations,
+                 frontier_refills=stats.frontier_refills,
+                 leaves_visited=stats.leaves_visited,
+                 rows_scanned=stats.rows_scanned,
+                 pruning_ratio=stats.pruning_ratio,
+                 stop_delta=stats.stop_delta,
+                 stop_epsilon=stats.stop_epsilon,
+                 stop_exhausted=stats.stop_exhausted,
+                 delta_slack=stats.delta_slack, eps_slack=stats.eps_slack)
     return OocResult(result=result, stats=stats)

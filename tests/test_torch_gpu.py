@@ -461,3 +461,89 @@ def test_engine_with_writes_on_the_card_matches_the_cpu(cuda, tmp_path,
     _ties_only(got.ids, want.ids, live, q)
     assert not np.isin(got.ids.cpu().numpy(),
                        np.r_[np.arange(64), 200]).any()
+
+
+@pytest.mark.parametrize("ooc", [False, True])
+def test_serve_front_on_the_card_matches_the_cpu(cuda, tmp_path, ooc):
+    """The serving front over an engine on the card answers no-deadline
+    requests (the exact tier) as the same front over the engine on the
+    CPU, with a write applied through the write lane first."""
+    from repro_torch.core.engine import DistributedEngine
+    from repro_torch.core.spec import IndexSpec, StoreSpec
+    from repro_torch.serve import AdmissionController, Request, ServeFront
+
+    data = randomwalk.generate(seed=3, n_series=4096, series_len=256)
+    fresh = randomwalk.generate(seed=5, n_series=64, series_len=256)
+    q = queries.noisy_queries(data, 16)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        eng = DistributedEngine(shards=4, device=dev).build(
+            data, index=IndexSpec("dstree", leaf_cap=64),
+            store=StoreSpec(spill_dir=str(tmp_path / dev),
+                            keep_resident=not ooc))
+        try:
+            with ServeFront(eng, 10, max_batch=4,
+                            admission=AdmissionController(64)) as front:
+                front.submit_write("insert", rows=fresh).result(120)
+                front.submit_write("delete", ids=np.arange(32)).result(120)
+                ts = [front.submit(Request(
+                    uid=i, prompt=np.zeros(2, np.int32), series=q[i]))
+                      for i in range(len(q))]
+                outs[dev] = [t.result(300) for t in ts]
+            assert front.admission.depth == 0
+        finally:
+            eng.close()
+    live = np.concatenate([data, fresh])
+    got = torch.as_tensor(np.stack([o["ids"] for o in outs["cuda"]]))
+    want = torch.as_tensor(np.stack([o["ids"] for o in outs["cpu"]]))
+    gd = np.stack([o["dists"] for o in outs["cuda"]])
+    wd = np.stack([o["dists"] for o in outs["cpu"]])
+    assert all(o["kind"] == "exact" for o in outs["cuda"] + outs["cpu"])
+    torch.testing.assert_close(torch.as_tensor(gd) ** 2,
+                               torch.as_tensor(wd) ** 2, **TOL)
+    _ties_only(got, want, live, q)
+    assert not np.isin(got.numpy(), np.arange(32)).any()
+
+
+def test_concurrent_queries_equal_serial_on_the_card(cuda, tmp_path):
+    """engine.query from 6 threads on one card, resident and spilled,
+    returns what serial calls return, bit for bit."""
+    import threading
+
+    from repro_torch.core.engine import DistributedEngine
+    from repro_torch.core.spec import IndexSpec, StoreSpec
+
+    data = randomwalk.generate(seed=3, n_series=4096, series_len=256)
+    q = queries.noisy_queries(data, 16)
+    plans = [(q[0:4], G.exact()), (q[4:8], G.epsilon(1.0)),
+             (q[8:12], G.delta_epsilon(0.99, 1.0)), (q[12:16], G.ng(8)),
+             (q[2:6], G.exact()), (q[6:10], G.ng(4))]
+    eng = DistributedEngine(shards=4, device="cuda").build(
+        data, index=IndexSpec("dstree", leaf_cap=64),
+        store=StoreSpec(spill_dir=str(tmp_path / "spill")))
+    try:
+        for ooc in (False, True):
+            serial = [eng.query(x, 10, g, ooc=ooc) for x, g in plans]
+            for _round in range(2):
+                out, err = [None] * len(plans), []
+
+                def run(i, ooc=ooc, out=out, err=err):
+                    try:
+                        out[i] = eng.query(plans[i][0], 10, plans[i][1],
+                                           ooc=ooc)
+                    except BaseException as e:  # re-raised on the main thread below
+                        err.append(e)
+
+                ts = [threading.Thread(target=run, args=(i,))
+                      for i in range(len(plans))]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join(timeout=300)
+                assert not any(t.is_alive() for t in ts)
+                assert not err, err
+                for got, want in zip(out, serial):
+                    assert torch.equal(got.ids, want.ids)
+                    assert torch.equal(got.dists, want.dists)
+    finally:
+        eng.close()

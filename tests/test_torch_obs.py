@@ -1,0 +1,431 @@
+"""repro_torch's observability (repro_torch.obs): the tracer, the metrics
+registry with its histograms, the span sites of the search stack, and
+the one clock the serving front stamps with.
+
+The cases of tests/test_obs.py on the port, plus what
+scripts/obs_smoke.py checks: a traced out-of-core query's span tree
+carries the OocStats the caller gets, with ``bytes_read`` equal to the
+cache and prefetcher counters exactly. The histogram's quantile is
+within one log bucket (GROWTH) of numpy's at the same rank convention
+(``method="lower"``) and inside [min, max]. CPU only, jax-free.
+"""
+
+import json
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+from _hyp import given, settings, st
+
+from repro_torch import clock, obs
+from repro_torch.core import guarantees as G
+from repro_torch.core import search as S
+from repro_torch.core.engine import DistributedEngine, QueryResult
+from repro_torch.core.index import FrozenIndex
+from repro_torch.core.indexes import dstree
+from repro_torch.core.spec import IndexSpec, StoreSpec
+from repro_torch.fault import FaultInjector
+from repro_torch.obs import GROWTH, Histogram, MetricsRegistry
+from repro_torch.serve.batching import Request, Scheduler
+from repro_torch.serve.fault import RetryPolicy
+from repro_torch.store import DeviceLeafCache, LeafPrefetcher, search_ooc
+
+SETTINGS = dict(max_examples=40, deadline=None)
+
+
+@pytest.fixture
+def traced():
+    """Tracing on for one test, off and cleared after it."""
+    obs.clear()
+    obs.enable()
+    yield obs.tracer()
+    obs.disable()
+    obs.clear()
+
+
+@pytest.fixture(scope="module")
+def store(walk_data, tmp_path_factory):
+    ix = dstree.build(walk_data, leaf_cap=32, device="cpu")
+    d = ix.save(str(tmp_path_factory.mktemp("obs_store") / "idx"))
+    return FrozenIndex.load(d, resident="summaries", device="cpu")
+
+
+# ------------------------------------------------------------- tracer
+def test_clock_is_the_tracer_and_front_clock():
+    assert obs.now is clock.now
+    t0 = clock.now()
+    assert clock.now() >= t0
+
+
+def test_disabled_span_is_shared_noop():
+    assert not obs.enabled()
+    sp = obs.span("x", a=1)
+    assert sp is obs.NULL_SPAN
+    with sp as s:
+        s.set(bytes_read=5)
+        s.add("bytes_read", 5)
+    assert obs.tracer().spans() == []
+
+
+def test_span_nesting_and_profile(traced):
+    with obs.span("root", k=5) as root:
+        with obs.span("filter"):
+            time.sleep(0.001)
+        for i in range(3):
+            with obs.span("iter", n=i) as it:
+                it.set(bytes=10 * (i + 1))
+    spans = traced.spans()
+    # completion order: children land before their parent
+    assert [s.name for s in spans] == ["filter", "iter", "iter", "iter",
+                                       "root"]
+    assert all(s.parent == root.id for s in spans[:-1])
+    assert root.parent == -1
+    prof = obs.last_profile("root")
+    assert prof.attrs == {"k": 5}
+    assert prof.count("iter") == 3
+    assert prof.total("bytes") == 60
+    assert set(prof.phase_ms) == {"filter", "iter"}
+    assert prof.phase_ms["filter"] >= 1.0
+    assert prof.duration_ms >= prof.phase_ms["filter"]
+
+
+def test_subtree_isolates_concurrent_roots(traced):
+    with obs.span("query") as q1:
+        with obs.span("gather") as g1:
+            pass
+    with obs.span("query"):
+        with obs.span("gather"):
+            pass
+    assert {s.id for s in traced.subtree(q1)} == {q1.id, g1.id}
+
+
+def test_threads_build_independent_subtrees(traced):
+    barrier = threading.Barrier(2)
+    roots = {}
+
+    def work(tag):
+        barrier.wait(timeout=10)
+        with obs.span("troot", tag=tag) as r:
+            with obs.span("tchild", tag=tag):
+                pass
+        roots[tag] = r
+
+    ts = [threading.Thread(target=work, args=(t,)) for t in ("a", "b")]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=10)
+    assert not any(t.is_alive() for t in ts)
+    for tag in ("a", "b"):
+        assert roots[tag].parent == -1
+        (child,) = [s for s in traced.find("tchild")
+                    if s.attrs["tag"] == tag]
+        assert child.parent == roots[tag].id
+        assert child.tid == roots[tag].tid
+
+
+def test_chrome_events_structure(tmp_path, traced):
+    with obs.span("outer", codec="f32"):
+        with obs.span("inner") as sp:
+            sp.set(n=np.int64(7), m=torch.tensor(3))  # scalars JSON-ify
+    path = obs.dump_chrome_trace(str(tmp_path / "t.json"))
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    assert len(evs) == 2
+    assert all(e["ph"] == "X" and e["dur"] >= 0 for e in evs)
+    inner = next(e for e in evs if e["name"] == "inner")
+    outer = next(e for e in evs if e["name"] == "outer")
+    assert inner["args"]["n"] == 7 and inner["args"]["m"] == 3
+    assert outer["args"]["codec"] == "f32"
+    # the child nests inside its parent on the one clock
+    assert outer["ts"] <= inner["ts"]
+    assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"] + 1
+
+
+# ----------------------------------------------------------- registry
+def test_registry_label_keying_and_kind_conflict():
+    reg = MetricsRegistry()
+    a = reg.counter("reads", shard="0", codec="pq")
+    b = reg.counter("reads", codec="pq", shard="0")  # order-insensitive
+    c = reg.counter("reads", shard="1", codec="pq")
+    assert a is b and a is not c
+    a.inc(3)
+    assert b.value == 3 and c.value == 0
+    with pytest.raises(TypeError):
+        reg.histogram("reads", shard="0", codec="pq")
+    reg.gauge("depth").set(4)
+    reg.histogram("lat", kind="exact").record(2.0)
+    snap = reg.snapshot()
+    assert snap["reads{codec=pq,shard=0}"] == 3
+    assert snap["depth"] == 4
+    assert snap["lat{kind=exact}"]["count"] == 1
+    assert snap["lat{kind=exact}"]["p99"] == 2.0
+    assert len(reg.collect("reads")) == 2
+
+
+def test_counter_window_marks_keep_lifetime_total():
+    ctr = MetricsRegistry().counter("bytes")
+    ctr.inc(100)
+    ctr.mark()
+    ctr.inc(7)
+    assert ctr.since_mark == 7
+    assert ctr.value == 107  # the registry never forgets
+
+
+# ---------------------------------------------------------- histogram
+def test_histogram_empty_and_singleton():
+    h = Histogram("h", ())
+    assert np.isnan(h.quantile(0.5)) and np.isnan(h.mean)
+    h.record(3.7)
+    for q in (0.0, 0.5, 0.99, 1.0):
+        assert h.quantile(q) == 3.7  # clamped to [min, max] = the point
+    snap = h.snapshot()
+    assert snap["count"] == 1 and snap["p50"] == 3.7 and snap["mean"] == 3.7
+
+
+@given(st.lists(st.floats(1e-6, 1e6), min_size=1, max_size=100),
+       st.floats(0.0, 1.0))
+@settings(**SETTINGS)
+def test_histogram_quantile_vs_numpy(xs, q):
+    h = Histogram("h", ())
+    for v in xs:
+        h.record(v)
+    got = h.quantile(q)
+    x = np.asarray(xs, np.float64)
+    # the histogram's rank convention: the value at floor(q*(n-1))
+    ref = float(np.quantile(x, q, method="lower"))
+    tol = GROWTH * (1 + 1e-9)
+    assert ref / tol <= got <= ref * tol
+    assert x.min() <= got <= x.max()
+
+
+@given(st.lists(st.floats(1e-6, 1e6), min_size=2, max_size=60))
+@settings(**SETTINGS)
+def test_histogram_quantiles_monotone(xs):
+    h = Histogram("h", ())
+    for v in xs:
+        h.record(v)
+    qs = [h.quantile(q) for q in (0.0, 0.25, 0.5, 0.75, 0.95, 1.0)]
+    assert all(a <= b for a, b in zip(qs, qs[1:]))
+    assert h.count == len(xs)
+    np.testing.assert_allclose(h.sum, sum(xs), rtol=1e-9)
+
+
+def test_histogram_records_from_many_threads():
+    h = Histogram("h", ())
+    vals = np.arange(1, 4001, dtype=np.float64)
+
+    def work(part):
+        for v in part:
+            h.record(v)
+
+    ts = [threading.Thread(target=work, args=(p,))
+          for p in np.array_split(vals, 8)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in ts)
+    snap = h.snapshot()
+    assert snap["count"] == 4000 and snap["sum"] == vals.sum()
+    assert snap["min"] == 1.0 and snap["max"] == 4000.0
+
+
+# ------------------------------------------ the span sites of the stack
+def test_span_attrs_match_stats_on_real_query(store, walk_queries,
+                                              traced):
+    out = search_ooc(store, walk_queries, 5, G.epsilon(1.0),
+                     cache_leaves=6)
+    st_ = out.stats
+    prof = obs.last_profile("ooc.query")
+    assert prof is not None
+    # the span attrs are the OocStats fields: one schema, two views
+    for field in ("bytes_read", "bytes_h2d", "iterations",
+                  "leaves_visited", "rows_scanned", "frontier_refills",
+                  "stop_delta", "stop_epsilon", "stop_exhausted"):
+        assert prof.attrs[field] == st_[field], field
+    assert prof.attrs["guarantee"] == "epsilon"
+    assert prof.count("ooc.iteration") == st_.iterations
+    assert prof.count("ooc.gather") == prof.count("ooc.score") \
+        == st_.iterations
+    assert {"ooc.filter", "ooc.iteration",
+            "ooc.finalize"} <= set(prof.phase_ms)
+    assert (st_.stop_delta + st_.stop_epsilon
+            + st_.stop_exhausted) == walk_queries.shape[0]
+    # per-iteration demand reads fold up to the sync-read total
+    assert prof.total("bytes_read_sync") == st_.bytes_read_sync
+    assert prof.total("bytes_read") == st_.bytes_read
+
+
+def test_span_bytes_equal_the_cache_and_prefetcher_counters(store,
+                                                            walk_queries):
+    """scripts/obs_smoke.py on the port: the root's bytes_read equals the
+    cache's demand reads plus the prefetcher's, exactly, on a part-warm
+    cache; an untraced query records no span."""
+    rng = np.random.default_rng(7)
+    q = walk_queries[rng.permutation(walk_queries.shape[0])]
+    pf = LeafPrefetcher(store, depth=3)
+    cache = DeviceLeafCache(store, capacity_leaves=8, prefetcher=pf)
+    try:
+        obs.clear()
+        out = search_ooc(store, q, 5, G.epsilon(0.5), cache=cache,
+                         prefetch_depth=2)
+        assert not obs.tracer().spans()
+        assert out.stats.bytes_read > 0
+        cache.reset_counters()
+        obs.enable()
+        try:
+            out = search_ooc(store, q, 5, G.epsilon(0.5), cache=cache,
+                             prefetch_depth=2)
+        finally:
+            obs.disable()
+        counter_bytes = cache.stats().bytes_read_sync + pf.bytes_read
+        prof = obs.last_profile("ooc.query")
+        assert out.stats.bytes_read_rerank == 0
+        assert prof.attrs["bytes_read"] == counter_bytes \
+            == out.stats.bytes_read
+        assert prof.total("bytes_read_sync") \
+            == cache.stats().bytes_read_sync
+    finally:
+        pf.close()
+        obs.clear()
+
+
+def test_tracing_does_not_change_answers(store, walk_queries):
+    plain = search_ooc(store, walk_queries, 5, G.epsilon(1.0),
+                       cache_leaves=6)
+    obs.enable()
+    try:
+        traced = search_ooc(store, walk_queries, 5, G.epsilon(1.0),
+                            cache_leaves=6)
+        assert obs.last_profile("ooc.query") is not None
+    finally:
+        obs.disable()
+        obs.clear()
+    assert torch.equal(plain.result.ids, traced.result.ids)
+    assert torch.equal(plain.result.dists, traced.result.dists)
+    assert plain.stats.leaves_visited == traced.stats.leaves_visited
+
+
+def test_core_search_span(walk_data, walk_queries, traced):
+    ix = dstree.build(walk_data, leaf_cap=32, device="cpu")
+    res = S.search(ix, walk_queries, 5, G.exact(), device="cpu")
+    (sp,) = traced.find("core.search")
+    assert sp.attrs["lanes"] == walk_queries.shape[0]
+    assert sp.attrs["leaves"] == ix.num_leaves
+    assert sp.attrs["leaves_visited"] == int(res.leaves_visited.sum())
+    assert sp.attrs["rows_scanned"] == int(res.rows_scanned.sum())
+
+
+def test_engine_span_tree(walk_data, walk_queries, tmp_path, traced):
+    """engine.query over the spilled shards holds one engine.shard per
+    shard, each holding that shard's ooc.query; the write tier adds
+    delta.compact and delta.search; a resident query is one
+    engine.query with its visit totals."""
+    spill = str(tmp_path / "spill")
+    eng = DistributedEngine(shards=2, device="cpu").build(
+        walk_data, index=IndexSpec("dstree", leaf_cap=32),
+        store=StoreSpec(spill_dir=spill, keep_resident=False))
+    try:
+        res = eng.query(walk_queries, 5, G.exact())
+        prof = obs.last_profile("engine.query")
+        assert prof.attrs["path"] == "ooc" and prof.attrs["shards"] == 2
+        assert prof.attrs["bytes_read_total"] == res.stats.bytes_read
+        assert prof.count("engine.shard") == 2
+        assert prof.count("ooc.query") == 2
+        assert prof.total("bytes_read") == res.stats.bytes_read
+        shard_ids = {sp.id: sp.attrs["shard"] for sp in prof.spans
+                     if sp.name == "engine.shard"}
+        roots = [sp for sp in prof.spans if sp.name == "ooc.query"]
+        assert sorted(shard_ids[sp.parent] for sp in roots) == [0, 1]
+
+        obs.clear()
+        eng.insert(walk_data[:40] + 0.01)
+        assert eng.compact()
+        eng.insert(walk_data[40:50] + 0.01)
+        eng.query(walk_queries, 5, G.exact())
+        (comp,) = traced.find("delta.compact")
+        assert comp.attrs["rows"] == 40
+        (ds,) = traced.find("delta.search")
+        assert ds.attrs["rows"] == 10 and ds.attrs["lanes"] == len(
+            walk_queries)
+    finally:
+        eng.close()
+    res_eng = DistributedEngine(shards=2, device="cpu").build(
+        walk_data, index=IndexSpec("dstree", leaf_cap=32))
+    obs.clear()
+    res = res_eng.query(walk_queries, 5, G.exact())
+    (sp,) = traced.find("engine.query")
+    assert sp.attrs["path"] == "resident"
+    assert sp.attrs["leaves_visited"] == int(res.leaves_visited.sum())
+    res_eng.insert(walk_data[:4] + 0.01)
+    obs.clear()
+    res_eng.query(walk_queries, 5, G.exact())
+    (sp,) = traced.find("engine.query")
+    assert sp.attrs["path"] == "resident+delta"
+    assert sp.attrs["delta_rows"] == 4 and sp.attrs["segments"] == 0
+
+
+def test_failover_latency_histogram(walk_data, walk_queries, tmp_path):
+    """A failure on the owner copy of shard 1 records one
+    fault.failover_latency_ms sample: first failure to the replica's
+    answer, on the port's clock."""
+    spill = str(tmp_path / "spill")
+    eng = DistributedEngine(shards=2, device="cpu").build(
+        walk_data, index=IndexSpec("dstree", leaf_cap=32),
+        store=StoreSpec(spill_dir=spill, keep_resident=False, replicas=2))
+    h = obs.REGISTRY.histogram("fault.failover_latency_ms", shard="1")
+    h0 = obs.REGISTRY.histogram("fault.failover_latency_ms", shard="0")
+    before, before0 = h.count, h0.count
+    try:
+        t0 = clock.now()
+        res = eng.query(walk_queries, 5, G.ng(4), ooc_opts=dict(
+            fault=FaultInjector().kill_shard(1, replica=0),
+            retry=RetryPolicy(max_attempts=2, backoff_base_s=0.0)))
+        elapsed_ms = (clock.now() - t0) * 1e3
+    finally:
+        eng.close()
+    assert res.stats.failovers == 1 and not res.stats.degraded
+    assert h.count == before + 1
+    assert 0.0 <= h.max <= elapsed_ms
+    assert h0.count == before0  # shard 0 served at its first attempt
+
+
+# ------------------------------------------------- serve-side plumbing
+def test_request_submitted_at_on_the_shared_clock():
+    t0 = clock.now()
+    r = Request(uid=0, prompt=np.arange(4, dtype=np.int32))
+    t1 = clock.now()
+    assert t0 <= r.submitted_at <= t1
+
+
+def test_run_retrieval_attributes_time_per_group(traced):
+    """A request is charged its own guarantee group's retrieval time, not
+    the whole batch's."""
+
+    class SleepyEngine:
+        def query(self, q, k, g):
+            if g.kind == "ng":
+                time.sleep(0.05)  # only the degraded tier is slow
+            b = q.shape[0]
+            return QueryResult(
+                dists=torch.zeros(b, k),
+                ids=torch.arange(k, dtype=torch.int32).repeat(b, 1),
+                leaves_visited=torch.zeros(b, dtype=torch.int32),
+                rows_scanned=torch.zeros(b, dtype=torch.int32),
+                lb_computed=0)
+
+    reqs = [Request(uid=0, prompt=np.arange(4, dtype=np.int32),
+                    series=np.zeros(8, np.float32)),
+            Request(uid=1, prompt=np.arange(4, dtype=np.int32),
+                    deadline_ms=2.0, series=np.zeros(8, np.float32))]
+    out = Scheduler().run_retrieval(SleepyEngine(), reqs, k=3)
+    assert out[1]["kind"] == "ng" and out[0]["kind"] == "exact"
+    assert out[1]["retrieval_ms"] >= 50.0
+    # the exact-group request is not charged for the ng group's sleep
+    assert out[0]["retrieval_ms"] < out[1]["retrieval_ms"]
+    kinds = {sp.attrs["kind"] for sp in
+             traced.find("serve.retrieval_group")}
+    assert kinds == {"exact", "ng"}
