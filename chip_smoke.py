@@ -113,7 +113,32 @@ Phases, each of which fails the run by raising:
      Histogram, numpy's quantiles beside them. Launch counts are zeroed
      before and read after; K1, K4, lex_select and K6 must have run, and
      the path's kernel inputs are held against the plain versions;
-  11. kernels at the main path's shapes: each kernel against its plain
+  11. the LLM substrate: gemma2-2b at the full width and depth of
+     configs/gemma2_2b.py, bf16 weights drawn on the card from a seed; its
+     parameter count and bytes must be the reference's (2,614,341,888 and
+     5,229,167,616). One block (local, then global) at full width in f32
+     on the card (TF32 off) against the CPU on the same weights, prefill
+     of 2 prompts of 64 tokens and one decode step, at atol = rtol =
+     1e-3, and in bf16 on the card against f32 on the CPU at
+     LLM_BF16_VS_F32. At full depth in bf16: an 8192-token prefill down
+     the blockwise path (the local layers slide past their 4096 window)
+     against the dense path forced, then 32 decode steps from its cache
+     against a full prefill at their positions, at LLM_BF16_PATHS, every
+     logit finite. Prefill and decode timed by CUDA events beside their
+     bounds and the device's busy time in one profiled call. Then both
+     fronts of launch/serve.py at full width over the serving phase's
+     resident engine (its live rows after the write point; 16 requests,
+     prompts of 32-1024 tokens, 32 new tokens, SERVE_MIX's deadlines in
+     F, every group with share_gathers) and the flow of
+     examples/retrieval_serving.py (4096 walks of 128 embedded by the
+     mean final hidden state, a bf16-spilled DSTree engine over the 2304
+     dims, 8 requests): every request answered once or rejected, its
+     tokens its max_new_tokens, exact answers brute force's up to ties,
+     the two fronts' exact answers the same tokens and ids. Launch counts
+     are zeroed before and read after; K1, K4, lex_select and K3 must
+     have run, and the path's kernel inputs are held against the plain
+     versions;
+  12. kernels at the main path's shapes: each kernel against its plain
      version, timed with CUDA events beside the plain version, one
      PyTorch library call where one computes the same function (for K3
      the cuBLAS expanded form; cdist beside it as ``cdist_ms``), and the
@@ -124,7 +149,8 @@ Phases, each of which fails the run by raising:
      the HNSW build's block, lex_select at kk = 1200 and 4096 and K1 at
      D = 64 are timed too.
 
-Prints a ``{"serving": ...}`` line, a ``{"kernels": [...]}`` line, then
+Prints a ``{"serving": ...}`` line, an ``{"llm": ...}`` line, a
+``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": ...}`` as its last line. Exits non-zero without a result when no CUDA device
 is present or the package is missing.
 """
@@ -666,8 +692,9 @@ class PathInputs:
 
         return call
 
-    def check(self, what: str) -> list:
-        """Holds every recorded input; returns the keys held."""
+    def check(self, what: str, dist_atol: float = DIST_ATOL) -> list:
+        """Holds every recorded input; returns the keys held. ``dist_atol``
+        is K3's absolute tolerance (DIST_ATOL at the main path's norms)."""
         torch, ref = self.torch, self.ref
         saved = {name: fn.launches for name, fn in self.wrappers.items()}
         try:
@@ -675,7 +702,8 @@ class PathInputs:
                 name, where = key[0], f"{what} {key}"
                 fn = self.wrappers[name]
                 if name == "l2":
-                    dist_close(torch, fn(*args), ref.ref_l2(*args), where)
+                    close(torch, fn(*args), ref.ref_l2(*args), where,
+                          dist_atol, DIST_RTOL)
                 elif name == "box_mindist":
                     close(torch, fn(*args), ref.ref_box_mindist(*args), where)
                 elif name == "paa":
@@ -1582,7 +1610,7 @@ def phase_ingest(torch, S, G, ref, data, data_t, q, truth0, k, engines,
         live.update(truth=truth, ids=ids_t[truth.ids.long()].to(torch.int32),
                     dist=sq_dist64(torch, q_t, live_rows, pos),
                     n=int(ids_t.shape[0]), rows=live_rows, pos=pos,
-                    re_ids=re_ids)
+                    re_ids=re_ids, all_ids=live_ids)
         print(f"  live rows: {live['n']} ({base_live.shape[0]} base, "
               f"{re_ids.shape[0]} re-inserted, {int(keep.sum())} inserted)")
 
@@ -2091,7 +2119,11 @@ def phase_serving(torch, S, G, data_t, q, truth0, k, engines, live, path):
         n_after = sum(1 for r, _ in answers.values()
                       if any(d["applied_at"] < r.submitted_at
                              for d in deletes))
-        info.update(fresh_ms=fresh_ms, visible_ms=visible_ms)
+        info.update(fresh_ms=fresh_ms, visible_ms=visible_ms, writes=dict(
+            ins_ids=np.concatenate([np.asarray(i["ids"])
+                                    for i in writes.inserts]),
+            ins_rows=new_rows[:len(writes.inserts) * WRITE_ROWS],
+            del_ids=dels))
         probe_d = max(float(answers[u][1]["dists"][0])
                       for u in writes.probe_of)
         print(f"  serving write: {len(writes.inserts)} inserts of "
@@ -2229,6 +2261,498 @@ def phase_serving(torch, S, G, data_t, q, truth0, k, engines, live, path):
     finally:
         spill.close()
     return table, info, held
+
+
+# the LLM substrate (phase 11): gemma2-2b at the full width and depth of
+# src/repro_torch/configs/gemma2_2b.py, random weights from LLM_SEED
+LLM_ARCH = "gemma2-2b"
+# the reference's param_count and param_bytes of that config (bf16 weights,
+# f32 norms)
+LLM_PARAMS, LLM_BYTES = 2_614_341_888, 5_229_167_616
+LLM_SEED = 20
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12
+# b: one block (local, then global) at full width, the card against the
+# CPU on one set of weights: f32 (TF32 off) at atol = rtol = 1e-3; bf16 on
+# the card against f32 on the CPU at LLM_BF16_VS_F32, about twice the
+# largest error an H100 showed (1.16 on a decode logit; bf16's step near
+# the final softcap's 30 is 0.125)
+LLM_BLOCK_BATCH, LLM_BLOCK_LEN = 2, 64
+LLM_F32_TOL = 1e-3
+LLM_BF16_VS_F32 = dict(atol=2.0, rtol=0.02)
+# c: an 8192-token prefill (blockwise; the local layers slide past their
+# 4096 window) against the dense path forced on the same input, and 32
+# decode steps from its cache against a full prefill, in bf16 at
+# LLM_BF16_PATHS (on an H100 the two paths agreed bit for bit, decode and
+# prefill within 1.06)
+LLM_LONG, LLM_DECODE = 8192, 32
+LLM_BF16_PATHS = dict(atol=2.0, rtol=0.02)
+# d: timings
+LLM_PREFILL_SHAPES = ((8, 512), (1, 8192))
+LLM_DECODE_BATCHES = (1, 8, 32)
+LLM_DECODE_CACHE = 2048
+# e: retrieval-augmented serving over the serving phase's resident engine
+# (SERVE_MIX's deadlines in units of its F, max batch SERVE_BATCH), then
+# the flow of examples/retrieval_serving.py
+RAG_REQUESTS, RAG_PROMPT, RAG_NEW, RAG_K = 16, (32, 1024), 32, 10
+EXAMPLE_N, EXAMPLE_LEN, EXAMPLE_K, EXAMPLE_BATCH = 4096, 128, 5, 512
+EXAMPLE_DEADLINES = (None, 40.0, 5.0, None, 2.0, 20.0, None, 1.0)
+
+
+def llm_map(fn, tree, *more):
+    """fn over the leaves of a tree of dicts (and of trees laid out alike)."""
+    return {key: llm_map(fn, v, *(m[key] for m in more))
+            if isinstance(v, dict) else fn(v, *(m[key] for m in more))
+            for key, v in tree.items()}
+
+
+def llm_events_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds of fn() over reps calls by CUDA events, after one
+    warm call: the host's launches are inside the window (an eager step is
+    host-bound, and a user waits for it whole)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def llm_device_busy(torch, fn) -> tuple:
+    """(device-busy ms, kernels) of one call of fn, warm, from
+    torch.profiler's CUDA activity: the sum of its kernels' and copies'
+    durations (one stream: they do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if str(e.device_type).rsplit(".", 1)[-1] == "CUDA"]
+    return sum(e.time_range.elapsed_us() for e in evs) / 1e3, len(evs)
+
+
+def llm_kv_bytes(cfg) -> int:
+    """Bytes of KV cache per cached token over the whole stack."""
+    return (cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim
+            * cfg.compute_dtype.itemsize)
+
+
+def llm_prefill_bound(cfg, b: int, s: int) -> tuple:
+    """The least time of a prefill: every parameter outside the embedding
+    used once per token (2 operations each), the last position's logits,
+    and the attention as the chosen path computes it (scores and the
+    weighted sum over every entry the path scores, masked ones too),
+    over the bf16 peak; against every parameter read once and the KV
+    cache written once."""
+    ops = 2 * (LLM_PARAMS - cfg.vocab_size * cfg.d_model) * b * s
+    ops += 2 * b * cfg.d_model * cfg.vocab_size
+    blockwise = s > cfg.attn_dense_threshold and s % cfg.attn_chunk_q == 0
+    for i in range(cfg.num_layers):
+        local = cfg.pattern[i % cfg.period].attn_type == "local"
+        keys = s
+        if blockwise and local and cfg.local_window + cfg.attn_chunk_q < s:
+            keys = cfg.local_window + cfg.attn_chunk_q
+        ops += 4 * b * cfg.num_heads * cfg.head_dim * s * keys
+    n_bytes = LLM_BYTES + llm_kv_bytes(cfg) * b * s
+    return bound_ms(n_bytes, ops, PEAK_BF16_FLOPS) + (ops,)
+
+
+def llm_decode_bound(cfg, b: int, cap: int) -> tuple:
+    """The least time of a decode step: every parameter read once (the
+    tied logits read the whole table) and the KV cache read at capacity,
+    as the reference reads it; against 2 operations per parameter and the
+    attention over the capacity, per token."""
+    n_bytes = LLM_BYTES + llm_kv_bytes(cfg) * b * cap
+    ops = 2 * LLM_PARAMS * b + (4 * b * cfg.num_heads * cfg.head_dim * cap
+                                * cfg.num_layers)
+    return bound_ms(n_bytes, ops, PEAK_BF16_FLOPS) + (ops,)
+
+
+def phase_llm_model(torch):
+    """Parts a-d of the LLM phase: the full-width model, one full-width
+    block on the card against the CPU, the long prefill's paths and decode
+    consistency at full depth, and the timings. Returns (model, cfg, info)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import params as P
+
+    info = {}
+    cfg = get_config(LLM_ARCH)
+    g = torch.Generator().manual_seed(LLM_SEED)
+
+    # ---- a. the full-width model, bf16, on the card
+    t0 = time.perf_counter()
+    model = M.Model.init(cfg, LLM_SEED, "cuda")
+    torch.cuda.synchronize()
+    specs = M.model_specs(cfg)
+    n_par, n_bytes = P.param_count(specs), P.param_bytes(specs)
+    held = sum(p.numel() for p in model.parameters())
+    held_bytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters())
+    if (n_par, n_bytes, held, held_bytes) != (LLM_PARAMS, LLM_BYTES) * 2:
+        raise AssertionError(f"llm: {n_par} parameters in {n_bytes} bytes "
+                             f"({held} in {held_bytes} on the card), the "
+                             f"reference counts {LLM_PARAMS} in {LLM_BYTES}")
+    info.update(params=n_par, param_bytes=n_bytes,
+                init_s=time.perf_counter() - t0)
+    print(f"  llm a: {cfg.name} at full width ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} "
+          f"kv heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}): {n_par} parameters, {n_bytes} bytes, the "
+          f"reference's count; initialized on the card in "
+          f"{info['init_s']:.1f} s")
+
+    # ---- b. one block at full width: the card against the CPU
+    cfg1 = dataclasses.replace(cfg, num_layers=cfg.period,
+                               param_dtype=torch.float32,
+                               compute_dtype=torch.float32)
+    tree = P.initialize(M.model_specs(cfg1), LLM_SEED, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (LLM_BLOCK_BATCH, LLM_BLOCK_LEN),
+                         generator=g)
+
+    def prefill_decode(model_, cfg_, dev, nxt=None):
+        lg, cache = M.prefill(model_, {"tokens": toks.to(dev)}, cfg_,
+                              capacity=LLM_BLOCK_LEN + 1)
+        if nxt is None:
+            nxt = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        dl, _ = M.decode_step(model_, nxt.to(dev), cache, LLM_BLOCK_LEN,
+                              cfg_)
+        return lg.float().cpu(), dl.float().cpu(), nxt.cpu()
+
+    lg_c, dl_c, nxt = prefill_decode(
+        M.Model(cfg1, llm_map(lambda t: t.cpu(), tree)), cfg1, "cpu")
+    lg_g, dl_g, _ = prefill_decode(M.Model(cfg1, tree), cfg1, "cuda", nxt)
+    errs = {"f32 prefill": close(torch, lg_g, lg_c, "llm b f32 prefill",
+                                 LLM_F32_TOL, LLM_F32_TOL),
+            "f32 decode": close(torch, dl_g, dl_c, "llm b f32 decode",
+                                LLM_F32_TOL, LLM_F32_TOL)}
+    cfg16 = dataclasses.replace(cfg1, param_dtype=torch.bfloat16,
+                                compute_dtype=torch.bfloat16)
+    tree16 = llm_map(lambda t, s: t.to(s.dtype), tree, M.model_specs(cfg16))
+    del tree
+    lg_h, dl_h, _ = prefill_decode(M.Model(cfg16, tree16), cfg16, "cuda",
+                                   nxt)
+    del tree16
+    tol = LLM_BF16_VS_F32
+    errs["bf16 prefill"] = close(torch, lg_h, lg_c, "llm b bf16 prefill",
+                                 **tol)
+    errs["bf16 decode"] = close(torch, dl_h, dl_c, "llm b bf16 decode",
+                                **tol)
+    info["block_errors"] = errs
+    print(f"  llm b: one block ({cfg1.num_layers} layers: "
+          f"{', '.join(d.attn_type for d in cfg.pattern)}) at full width, "
+          f"{LLM_BLOCK_BATCH} prompts of {LLM_BLOCK_LEN} tokens, prefill "
+          f"and one decode step: the card (f32, TF32 off) equals the CPU "
+          f"within atol = rtol = {LLM_F32_TOL}, bf16 on the card the f32 "
+          f"CPU within atol {tol['atol']}, rtol {tol['rtol']}; max abs "
+          "errors " + ", ".join(f"{key} {v:.3g}" for key, v in errs.items()))
+
+    # ---- c. full depth, 8192 tokens: blockwise against dense, decode
+    # against prefill past the window
+    long = torch.randint(0, cfg.vocab_size, (1, LLM_LONG), generator=g
+                         ).to("cuda")
+    lg_b, cache = M.prefill(model, {"tokens": long}, cfg,
+                            capacity=LLM_LONG + LLM_DECODE)
+    dense = dataclasses.replace(cfg, attn_dense_threshold=LLM_LONG)
+    lg_d, _ = M.prefill(model, {"tokens": long}, dense)
+    tol = LLM_BF16_PATHS
+    err_paths = close(torch, lg_b, lg_d, "llm c blockwise vs dense", **tol)
+    steps, tok = [], lg_b[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    fed = [tok]
+    for t in range(LLM_DECODE):
+        lg, cache = M.decode_step(model, tok, cache, LLM_LONG + t, cfg)
+        steps.append(lg)
+        tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        fed.append(tok)
+    del cache
+    full = torch.cat([long] + fed[:-1], dim=1)  # 8192 + 32: the dense path
+    x = M._backbone(model, full, cfg)
+    lg_full = M._logits(model, x[:, LLM_LONG:], cfg)
+    del x
+    lg_dec = torch.cat(steps, dim=1)
+    err_dec = close(torch, lg_dec, lg_full, "llm c decode vs prefill", **tol)
+    agree = float((lg_dec.argmax(-1) == lg_full.argmax(-1)).float().mean())
+    for what, t in (("blockwise", lg_b), ("dense", lg_d), ("decode", lg_dec),
+                    ("prefill", lg_full)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"llm c: a non-finite {what} logit")
+    info.update(paths_err=err_paths, decode_err=err_dec,
+                decode_argmax_agree=agree)
+    print(f"  llm c: {LLM_LONG}-token prefill at full depth, blockwise "
+          f"(chunk {cfg.attn_chunk_q}; local layers slide a "
+          f"{cfg.local_window + cfg.attn_chunk_q}-key window) against the "
+          f"dense path forced: max abs error {err_paths:.3g}; {LLM_DECODE} "
+          f"decode steps from its cache (window mask in force) against a "
+          f"full {LLM_LONG + LLM_DECODE}-token prefill: max abs error "
+          f"{err_dec:.3g}, argmax equal at {agree:.3f} of the steps; within "
+          f"atol {tol['atol']}, rtol {tol['rtol']} (bf16); every logit "
+          "finite")
+
+    # ---- d. timings against their bounds
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    info["card"] = smi.stdout.strip().splitlines()[0]
+    timings = []
+    for b, s in LLM_PREFILL_SHAPES:
+        t = torch.randint(0, cfg.vocab_size, (b, s), generator=g).cuda()
+
+        def pre(t=t):
+            return M.prefill(model, {"tokens": t}, cfg)
+
+        ms = llm_events_ms(torch, pre, 3)
+        busy, kernels = llm_device_busy(torch, pre)
+        bound, by, ops = llm_prefill_bound(cfg, b, s)
+        timings.append(dict(what="prefill", batch=b, tokens=s, ms=ms,
+                            tokens_per_s=b * s / ms * 1e3, bound_ms=bound,
+                            bound_by=by, flops=ops, device_busy_ms=busy,
+                            device_ops=kernels))
+    for b in LLM_DECODE_BATCHES:
+        cache = M.alloc_cache(cfg, b, LLM_DECODE_CACHE, "cuda")
+        t = torch.randint(0, cfg.vocab_size, (b, 1), generator=g).cuda()
+
+        def step(t=t, cache=cache):
+            return M.decode_step(model, t, cache, LLM_DECODE_CACHE - 1, cfg)
+
+        ms = llm_events_ms(torch, step, 10)
+        busy, kernels = llm_device_busy(torch, step)
+        del cache, step  # 7 GB at batch 32
+        bound, by, ops = llm_decode_bound(cfg, b, LLM_DECODE_CACHE)
+        timings.append(dict(what="decode", batch=b, tokens=LLM_DECODE_CACHE,
+                            ms=ms, tokens_per_s=b / ms * 1e3, bound_ms=bound,
+                            bound_by=by, flops=ops, device_busy_ms=busy,
+                            device_ops=kernels))
+    info["timings"] = timings
+    print(f"  llm d: timings by CUDA events on {info['card']} (prefill: "
+          f"batch x tokens; decode: one step at batch B with a "
+          f"{LLM_DECODE_CACHE}-token cache):")
+    for r in timings:
+        print(f"    {r['what']:7s} {r['batch']:2d} x {r['tokens']:5d}: "
+              f"{r['ms']:9.3f} ms, {r['tokens_per_s']:10.1f} tokens/s, "
+              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
+              f"{r['bound_ms'] / r['ms']:.3f} of it; the device busy "
+              f"{r['device_busy_ms']:.3f} ms of a profiled call "
+              f"({r['device_ops']} kernels and copies)")
+    return model, cfg, info
+
+
+def llm_front_row(name, results, reqs, wall, check_ids):
+    """Checks one front's results and returns its table row: every request
+    answered once, or rejected with a reason; its tokens its
+    max_new_tokens; each exact answer brute force's (check_ids)."""
+    if sorted(results) != sorted(r.uid for r in reqs):
+        raise AssertionError(f"{name}: answered {sorted(results)}")
+    n_exact = 0
+    for r in reqs:
+        e = results[r.uid]
+        if e["tokens"].shape != (r.max_new_tokens,):
+            raise AssertionError(f"{name}: request {r.uid} has "
+                                 f"{e['tokens'].shape} tokens")
+        if "retrieval_error" in e or ("retrieval" in e) == (
+                "retrieval_rejected" in e):
+            raise AssertionError(f"{name}: request {r.uid} is neither "
+                                 "answered nor rejected once")
+        if e.get("retrieval", {}).get("kind") == "exact":
+            check_ids(r, e["retrieval"])
+            n_exact += 1
+    lat = [e["latency_ms"] for e in results.values()]
+    kinds = {}
+    for e in results.values():
+        kind = e.get("retrieval", {}).get("kind", "rejected")
+        kinds[kind] = kinds.get(kind, 0) + 1
+    return dict(front=name, requests=len(reqs), exact=n_exact,
+                rejected=sum("retrieval_rejected" in e
+                             for e in results.values()),
+                p50=float(np.quantile(lat, 0.5, method="lower")),
+                p99=float(np.quantile(lat, 0.99, method="lower")),
+                generate_ms=float(np.median(
+                    [e["generate_ms"] for e in results.values()])),
+                retrieval_ms=float(np.median(
+                    [e["retrieval_ms"] for e in results.values()])),
+                rps=len(reqs) / wall, wall_s=wall, kinds=kinds)
+
+
+def same_exact(name, a, b):
+    """The static and continuous fronts' exact answers: the same tokens and
+    the same ids."""
+    n = 0
+    for uid in a:
+        ra, rb = a[uid].get("retrieval", {}), b[uid].get("retrieval", {})
+        if ra.get("kind") == rb.get("kind") == "exact":
+            if not (np.array_equal(a[uid]["tokens"], b[uid]["tokens"])
+                    and np.array_equal(ra["ids"], rb["ids"])):
+                raise AssertionError(f"{name}: request {uid} differs between "
+                                     "the static and continuous fronts")
+            n += 1
+    return n
+
+
+def phase_llm_serving(torch, S, model, cfg, resident, live, writes, q, f_ms,
+                      root: Path, path):
+    """Part e of the LLM phase: both fronts of launch/serve.py at full width
+    over the serving phase's resident engine (its live rows after the write
+    point), then the flow of examples/retrieval_serving.py. Returns (table
+    rows, kernel inputs held)."""
+    from repro_torch.core.engine import DistributedEngine
+    from repro_torch.core.spec import IndexSpec, StoreSpec
+    from repro_torch.data import randomwalk
+    from repro_torch.launch.serve import (serve_requests,
+                                          serve_requests_continuous)
+    from repro_torch.models import model as M
+    from repro_torch.serve import Request
+
+    dev = "cuda"
+    held, table = [], []
+    rng = np.random.default_rng(LLM_SEED)
+
+    def exact_checker(what, series, rows, ids, k, atol):
+        """Brute force over rows (global ids ``ids``) for every request's
+        series ({uid: series}); returns check(request, retrieval entry):
+        an exact answer has brute force's ids, up to ties, at its
+        distances."""
+        ids_t = torch.as_tensor(ids, device=dev)
+        pos = torch.zeros(int(ids_t.max()) + 1, dtype=torch.long, device=dev)
+        pos[ids_t.long()] = torch.arange(ids_t.shape[0], device=dev)
+        uids = list(series)
+        qs = torch.as_tensor(np.stack([series[u] for u in uids]), device=dev)
+        with path:
+            truth = S.brute_force(qs, rows, k, device=dev)
+        held.extend(path.check(f"llm {what} brute force", atol))
+        t_ids = ids_t[truth.ids.long()].to(torch.int32)
+        row_of = {u: i for i, u in enumerate(uids)}
+
+        def check(r, ret):
+            i, where = row_of[r.uid], f"llm {what} request {r.uid}"
+            got = torch.as_tensor(ret["ids"], device=dev)[None]
+            ties_only(torch, got, t_ids[i:i + 1],
+                      sq_dist64(torch, qs[i:i + 1], rows, pos), where)
+            close(torch, torch.as_tensor(ret["dists"], device=dev) ** 2,
+                  truth.dists[i] ** 2, where, atol, DIST_RTOL)
+
+        return check
+
+    def run_fronts(what, eng, reqs_of, gkw, k, max_batch, check, atol):
+        outs = {}
+        for front, fn in (("static", serve_requests),
+                          ("continuous", serve_requests_continuous)):
+            reqs = reqs_of()
+            with path:
+                t0 = time.perf_counter()
+                outs[front] = fn(model, cfg, reqs, engine=eng, retrieval_k=k,
+                                 max_batch=max_batch, guarantee_kw=gkw)
+                wall = time.perf_counter() - t0
+            held.extend(path.check(f"llm {what} {front}", atol))
+            row = llm_front_row(f"llm {what} {front}", outs[front], reqs,
+                                wall, check)
+            row["flow"] = what
+            table.append(row)
+        n = same_exact(f"llm {what}", outs["static"], outs["continuous"])
+        print(f"  llm {what}: {n} requests exact on both fronts, with the "
+              "same tokens and ids on each")
+
+    # ---- over the serving phase's resident engine
+    keep = ~np.isin(live["all_ids"], writes["del_ids"])
+    rows = torch.cat([live["rows"][torch.as_tensor(keep, device=dev)],
+                      torch.as_tensor(writes["ins_rows"], device=dev)])
+    ids = np.concatenate([live["all_ids"][keep], writes["ins_ids"]])
+    lens = rng.integers(RAG_PROMPT[0], RAG_PROMPT[1] + 1, size=RAG_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lens]
+    series = {i: q[i % q.shape[0]] for i in range(RAG_REQUESTS)}
+
+    mix = [SERVE_MIX[i % len(SERVE_MIX)] for i in range(RAG_REQUESTS)]
+
+    def rag_requests():
+        return [Request(uid=i, prompt=prompts[i], max_new_tokens=RAG_NEW,
+                        deadline_ms=None if m is None else m * f_ms,
+                        series=series[i]) for i, m in enumerate(mix)]
+
+    check = exact_checker("rag", series, rows, ids, RAG_K, DIST_ATOL)
+    run_fronts("rag", ShareGathers(resident), rag_requests,
+               {"full_budget_ms": f_ms}, RAG_K, SERVE_BATCH, check, DIST_ATOL)
+
+    # ---- the example's flow: embed walks by the mean final hidden state,
+    # a bf16-spilled DSTree engine over the embeddings, 8 requests
+    walks = randomwalk.generate(seed=7, n_series=EXAMPLE_N,
+                                series_len=EXAMPLE_LEN)
+    t0 = time.perf_counter()
+    embs = []
+    for i in range(0, EXAMPLE_N, EXAMPLE_BATCH):
+        x = torch.as_tensor(walks[i:i + EXAMPLE_BATCH], device=dev)
+        toks = ((x + 3) / 6 * (cfg.vocab_size - 1)).clamp(
+            0, cfg.vocab_size - 1).to(torch.int32)
+        embs.append(M._backbone(model, toks, cfg).mean(dim=1).float())
+    emb = torch.cat(embs).cpu().numpy()
+    embed_s = time.perf_counter() - t0
+    emb = ((emb - emb.mean(0)) / (emb.std(0) + 1e-9)).astype(np.float32)
+    # squared distances in the expanded form cancel norms of about the
+    # width here (z-scored dims), not 512: the f32 rounding DIST_ATOL
+    # allows at the main path, scaled by the norms
+    sq = (emb.astype(np.float64) ** 2).sum(1).max()
+    atol = DIST_ATOL * max(1.0, 2 * sq / 512)
+    if not np.isfinite(emb).all() or emb.shape != (EXAMPLE_N, cfg.d_model):
+        raise AssertionError(f"llm example: embeddings {emb.shape}, finite "
+                             f"{np.isfinite(emb).all()}")
+    qi = rng.choice(EXAMPLE_N, len(EXAMPLE_DEADLINES), replace=False)
+    ex_q = (emb[qi] + 0.05 * rng.normal(size=emb[qi].shape)).astype(
+        np.float32)
+    spill_dir = root / "llm_example"
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    with path:
+        eng = DistributedEngine(shards=1, device=dev).build(
+            emb, index=IndexSpec("dstree", n_segments=8, leaf_cap=128),
+            store=StoreSpec(spill_dir=str(spill_dir), codec="bf16",
+                            keep_resident=False))
+    held.extend(path.check("llm example build", atol))
+    build_s = time.perf_counter() - t0
+    try:
+        # the store holds the bf16 image of the rows: brute force over it
+        img = torch.as_tensor(emb, device=dev).to(torch.bfloat16).float()
+        ex_prompts = [rng.integers(0, cfg.vocab_size,
+                                   size=rng.integers(5, 12)).astype(np.int32)
+                      for _ in EXAMPLE_DEADLINES]
+
+        def ex_requests():
+            return [Request(uid=i, prompt=ex_prompts[i], max_new_tokens=8,
+                            deadline_ms=dl, series=ex_q[i])
+                    for i, dl in enumerate(EXAMPLE_DEADLINES)]
+
+        check = exact_checker("example", dict(enumerate(ex_q)), img,
+                              np.arange(EXAMPLE_N), EXAMPLE_K, atol)
+        run_fronts("example", eng, ex_requests, {}, EXAMPLE_K, 4, check,
+                   atol)
+    finally:
+        eng.close()
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    print(f"  llm example: {EXAMPLE_N} walks of {EXAMPLE_LEN} embedded by "
+          f"the mean final hidden state ({cfg.d_model} dims) in "
+          f"{embed_s:.1f} s; a bf16-spilled DSTree engine over them built "
+          f"in {build_s:.1f} s; squared distances held at atol {atol:.3g} "
+          f"(norms up to {sq:.0f})")
+    return table, held
+
+
+def print_llm_table(rows) -> None:
+    hdr = (f"{'front':26s} {'requests':>8s} {'exact':>5s} {'rejected':>8s} "
+           f"{'p50 ms':>9s} {'p99 ms':>9s} {'generate':>9s} {'retrieval':>9s} "
+           f"{'rps':>6s}")
+    print(hdr)
+    print("-" * len(hdr))
+    for r in rows:
+        print(f"{r['front']:26s} {r['requests']:8d} {r['exact']:5d} "
+              f"{r['rejected']:8d} {r['p50']:9.1f} {r['p99']:9.1f} "
+              f"{r['generate_ms']:9.1f} {r['retrieval_ms']:9.1f} "
+              f"{r['rps']:6.2f}")
 
 
 def main() -> int:
@@ -2426,59 +2950,88 @@ def main() -> int:
             PathInputs(torch, ops, ref, wrappers))
         srv_counts = {name: fn.launches for name, fn in wrappers.items()}
         srv_s = time.perf_counter() - t0
-        del live
+        ins_rate = ing_times["inserted"] / max(ing_times["insert_s"], 1e-9)
+        del_rate = ing_times["deleted"] / max(ing_times["delete_s"], 1e-9)
+        comp = ing_times["compact_s"]
+        print(f"streaming ingest on the engine's shards "
+              f"({ing_s:.1f} s): inserts {ins_rate:.0f} rows/s,"
+              f" deletes {del_rate:.0f} rows/s, compaction "
+              f"{sum(comp) / len(comp):.2f} s each ({min(comp):.2f}-"
+              f"{max(comp):.2f}), tombstone masks {ing_times['mask_ms']:.1f} ms, "
+              f"snapshot {ing_times['snapshot_ms']:.1f} ms, daemon "
+              f"{ing_times['daemon_s']:.2f} s, rebuild {ing_times['rebuild_s']:.1f}"
+              " s:")
+        print_ingest_table(ing_table)
+        print(f"kernel inputs of the ingest path held against the plain "
+              f"versions ({len(ing_held)}): " + "; ".join(
+                  f"{key[0]} {key[1:]}" for key in ing_held))
+        print(f"launches on the ingest path: {ing_counts}")
+        missing = [name for name, c in ing_counts.items()
+                   if c == 0 and name != "paa"]
+        if missing:
+            raise AssertionError(f"kernels not launched on the ingest path: "
+                                 f"{missing}")
+
+        print(f"serving front on the ingest phase's engines ({srv_s:.1f} s; "
+              f"F {srv_info['f_ms']:.1f} ms, R0 {srv_info['r0']:.3f} requests/s,"
+              f" max batch {SERVE_BATCH}; latencies from the port's Histogram, "
+              "numpy's quantile (method lower) of the same values beside):")
+        print_serving_table(srv_table)
+        print(f"kernel inputs of the serving path held against the plain "
+              f"versions ({len(srv_held)}): " + "; ".join(
+                  f"{key[0]} {key[1:]}" for key in srv_held))
+        print(f"launches on the serving path: {srv_counts}")
+        missing = [name for name in ("box_mindist", "coop_score_select",
+                                     "lex_select", "pq_adc_select")
+                   if srv_counts[name] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the serving path: "
+                                 f"{missing}")
+        print(json.dumps({"serving": {
+            "f_ms": srv_info["f_ms"], "r0_rps": srv_info["r0"],
+            "points": [{key: r[key] for key in (
+                "point", "engine", "offered", "answered", "rejected", "shed",
+                "rps", "p50", "p99", "np_p50", "np_p99", "degraded", "wall_s")}
+                for r in srv_table],
+            "fresh_ms": srv_info["fresh_ms"],
+            "visible_ms": srv_info["visible_ms"],
+            "retrieval_ms": srv_info["retrieval_ms"],
+            "iteration_split_ms": srv_info["trace_split"]}}))
+
+        # the LLM substrate, then retrieval-augmented serving over the
+        # serving phase's resident engine, with its own counts
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        model, llm_cfg, llm_info = phase_llm_model(torch)
+        llm_table, llm_held = phase_llm_serving(
+            torch, S, model, llm_cfg, engines["resident"], live,
+            srv_info["writes"], q, srv_info["f_ms"], eng_root,
+            PathInputs(torch, ops, ref, wrappers))
+        llm_counts = {name: fn.launches for name, fn in wrappers.items()}
+        llm_s = time.perf_counter() - t0
+        del model, live
+        print(f"LLM substrate and retrieval-augmented serving ({llm_s:.1f} s;"
+              f" {llm_cfg.name} at full width and depth; latencies in ms, "
+              "numpy's quantile (method lower)):")
+        print_llm_table(llm_table)
+        print(f"kernel inputs of the LLM path held against the plain "
+              f"versions ({len(llm_held)}): " + "; ".join(
+                  f"{key[0]} {key[1:]}" for key in llm_held))
+        print(f"launches on the LLM path: {llm_counts}")
+        missing = [name for name in ("box_mindist", "coop_score_select",
+                                     "lex_select", "l2")
+                   if llm_counts[name] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the LLM path: "
+                                 f"{missing}")
+        print(json.dumps({"llm": dict(llm_info, seconds=llm_s,
+                                      serving=llm_table)}))
     finally:
         if engines is not None:
             engines["resident"].close()
             engines["pq"].close()
         shutil.rmtree(eng_root, ignore_errors=True)
-    ins_rate = ing_times["inserted"] / max(ing_times["insert_s"], 1e-9)
-    del_rate = ing_times["deleted"] / max(ing_times["delete_s"], 1e-9)
-    comp = ing_times["compact_s"]
-    print(f"streaming ingest on the engine's shards "
-          f"({ing_s:.1f} s): inserts {ins_rate:.0f} rows/s,"
-          f" deletes {del_rate:.0f} rows/s, compaction "
-          f"{sum(comp) / len(comp):.2f} s each ({min(comp):.2f}-"
-          f"{max(comp):.2f}), tombstone masks {ing_times['mask_ms']:.1f} ms, "
-          f"snapshot {ing_times['snapshot_ms']:.1f} ms, daemon "
-          f"{ing_times['daemon_s']:.2f} s, rebuild {ing_times['rebuild_s']:.1f}"
-          " s:")
-    print_ingest_table(ing_table)
-    print(f"kernel inputs of the ingest path held against the plain "
-          f"versions ({len(ing_held)}): " + "; ".join(
-              f"{key[0]} {key[1:]}" for key in ing_held))
-    print(f"launches on the ingest path: {ing_counts}")
-    missing = [name for name, c in ing_counts.items()
-               if c == 0 and name != "paa"]
-    if missing:
-        raise AssertionError(f"kernels not launched on the ingest path: "
-                             f"{missing}")
-
-    print(f"serving front on the ingest phase's engines ({srv_s:.1f} s; "
-          f"F {srv_info['f_ms']:.1f} ms, R0 {srv_info['r0']:.3f} requests/s,"
-          f" max batch {SERVE_BATCH}; latencies from the port's Histogram, "
-          "numpy's quantile (method lower) of the same values beside):")
-    print_serving_table(srv_table)
-    print(f"kernel inputs of the serving path held against the plain "
-          f"versions ({len(srv_held)}): " + "; ".join(
-              f"{key[0]} {key[1:]}" for key in srv_held))
-    print(f"launches on the serving path: {srv_counts}")
-    missing = [name for name in ("box_mindist", "coop_score_select",
-                                 "lex_select", "pq_adc_select")
-               if srv_counts[name] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the serving path: "
-                             f"{missing}")
-    print(json.dumps({"serving": {
-        "f_ms": srv_info["f_ms"], "r0_rps": srv_info["r0"],
-        "points": [{key: r[key] for key in (
-            "point", "engine", "offered", "answered", "rejected", "shed",
-            "rps", "p50", "p99", "np_p50", "np_p99", "degraded", "wall_s")}
-            for r in srv_table],
-        "fresh_ms": srv_info["fresh_ms"],
-        "visible_ms": srv_info["visible_ms"],
-        "retrieval_ms": srv_info["retrieval_ms"],
-        "iteration_split_ms": srv_info["trace_split"]}}))
 
     rows = kernel_rows(torch, ops, ref, build, data_t, q_t, built["isax2+"],
                        built["va+file"], k, counts, pq_in)
@@ -2489,7 +3042,8 @@ def main() -> int:
             "baselines": base_counts[r["name"]],
             "engine": eng_counts[r["name"]],
             "ingest": ing_counts[r["name"]],
-            "serving": srv_counts[r["name"]]}
+            "serving": srv_counts[r["name"]],
+            "llm": llm_counts[r["name"]]}
     shapes = shape_rows(torch, ops, ref, data_t, q_t)
     for r in shapes:
         print(f"  {r['name']} at {r['shape']}: {r['ms']:.4f} ms, bound "

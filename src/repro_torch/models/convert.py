@@ -1,0 +1,88 @@
+"""Carrying the reference's weights and caches into the port.
+
+The reference draws its weights from jax keys, which torch cannot
+reproduce; parity between the two packages therefore runs both on one
+set of weights. :func:`params_from_jax` takes the reference's parameter
+pytree as numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``:
+nested dicts, block leaves stacked ``[G, ...]``) and returns the port's
+:class:`~repro_torch.models.model.Model`, block g holding slice g of each
+stacked leaf. :func:`cache_from_jax` does the same for a prefill cache.
+Both check every leaf's shape and dtype against the config's specs and
+raise on a missing or extra leaf.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.configs.base import ModelConfig
+
+from .model import Model, decode_cache_specs, model_specs
+from .params import spec_leaves
+
+__all__ = ["cache_from_jax", "params_from_jax"]
+
+
+def _flat(tree, prefix: str = "") -> Dict[str, Any]:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # jax's arrays are read-only views
+        a = a.copy()
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, as jax gives it
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def _convert(tree, specs, what: str, dev: torch.device):
+    """The tree as torch tensors on ``dev``, each leaf checked against its
+    spec; nested dicts as the specs lay them out."""
+    flat = _flat(tree)
+    want = dict(spec_leaves(specs))
+    missing, extra = sorted(set(want) - set(flat)), sorted(set(flat)
+                                                           - set(want))
+    if missing or extra:
+        raise ValueError(f"{what}: missing leaves {missing}, extra leaves "
+                         f"{extra}")
+    out: Dict[str, Any] = {}
+    for path, spec in want.items():
+        a = np.asarray(flat[path])
+        dtype = str(spec.dtype).rsplit(".", 1)[-1]
+        if tuple(a.shape) != tuple(spec.shape) or a.dtype.name != dtype:
+            raise ValueError(f"{what}: {path} is {a.dtype.name}"
+                             f"{list(a.shape)}, the config wants {dtype}"
+                             f"{list(spec.shape)}")
+        node = out
+        *parents, leaf = path.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = _tensor(a, dev)
+    return out
+
+
+def params_from_jax(tree, cfg: ModelConfig,
+                    device=device_mod.DEFAULT) -> Model:
+    """The reference's parameters (numpy leaves) as the port's Model."""
+    dev = device_mod.resolve(device)
+    return Model(cfg, _convert(tree, model_specs(cfg), "params", dev))
+
+
+def cache_from_jax(cache, cfg: ModelConfig, device=device_mod.DEFAULT):
+    """The reference's prefill cache (numpy leaves, [G, B, S, Kv, D] per
+    sub-layer) in the port's layout, which is the same."""
+    dev = device_mod.resolve(device)
+    first = np.asarray(cache["blocks"]["sub0"]["k"])
+    specs = decode_cache_specs(cfg, first.shape[1], first.shape[2])
+    return _convert(cache, specs, "cache", dev)

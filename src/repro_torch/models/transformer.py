@@ -1,0 +1,206 @@
+"""Decoder-only transformer assembly: the block stack, prefill, decode.
+
+The port's copy of ``src/repro/models/transformer.py`` for attention with
+a dense FF. Depth is ``num_blocks`` repetitions of the config's layer
+*pattern* (period P); layer i's sub-layer is ``pattern[i % P]``. The
+reference stacks one block's parameters along a leading 'layers' axis and
+scans over blocks; here the stack is a ``ModuleList`` of blocks (block g
+holds slice g of every stacked leaf) and the scan a Python loop. The KV
+cache stays stacked, [G, B, S, Kv, D] per sub-layer, and is written in
+place. Rematerialization has no meaning in serving and is dropped.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import LayerDesc, ModelConfig
+
+from . import attention as attn_mod
+from .layers import mlp_apply, mlp_specs, rmsnorm_apply, rmsnorm_specs
+from .params import ParamSpec, tree_map_specs
+
+__all__ = ["attn_config", "block_specs", "cache_specs", "decode_blocks",
+           "not_ported", "run_blocks", "stack_specs", "sublayer_cache_spec",
+           "sublayer_specs"]
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}, which repro_torch does not port yet (ROADMAP Queue 1, "
+        "item 7)")
+
+
+def attn_config(cfg: ModelConfig) -> attn_mod.AttnConfig:
+    return attn_mod.AttnConfig(
+        d_model=cfg.d_model,
+        num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim,
+        qkv_bias=cfg.qkv_bias,
+        logit_cap=cfg.attn_logit_softcap,
+        query_scale=cfg.query_scale,
+        rope_theta=cfg.rope_theta,
+        chunk_q=cfg.attn_chunk_q,
+        dense_threshold=cfg.attn_dense_threshold,
+    )
+
+
+def _check_dense(desc: LayerDesc) -> None:
+    if desc.kind != "attn":
+        raise not_ported(f"the pattern has a {desc.kind} sub-layer")
+    if desc.ff not in ("dense", "none"):
+        raise not_ported(f"the pattern has a {desc.ff} FF")
+
+
+def _check_one_card(cfg: ModelConfig) -> None:
+    if cfg.sequence_parallel:
+        raise ValueError(f"{cfg.name}: sequence_parallel shards the residual "
+                         "stream over a model axis; one card has none")
+
+
+# ---------------------------------------------------------------------------
+# Specs
+# ---------------------------------------------------------------------------
+
+def sublayer_specs(cfg: ModelConfig, desc: LayerDesc,
+                   d_ff_override: int = 0) -> Dict[str, Any]:
+    _check_dense(desc)
+    dt = cfg.param_dtype
+    specs: Dict[str, Any] = {"ln1": rmsnorm_specs(cfg.d_model),
+                             "attn": attn_mod.attn_specs(attn_config(cfg), dt)}
+    if cfg.post_norm:
+        specs["post_ln1"] = rmsnorm_specs(cfg.d_model)
+    if desc.ff == "dense":
+        specs["ln2"] = rmsnorm_specs(cfg.d_model)
+        specs["mlp"] = mlp_specs(cfg.d_model, d_ff_override or cfg.d_ff, dt)
+        if cfg.post_norm:
+            specs["post_ln2"] = rmsnorm_specs(cfg.d_model)
+    return specs
+
+
+def block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {f"sub{i}": sublayer_specs(cfg, d)
+            for i, d in enumerate(cfg.pattern)}
+
+
+def stack_specs(tree, g: int):
+    """Prepend a 'layers' axis of size g to every ParamSpec."""
+    return tree_map_specs(
+        lambda s: ParamSpec((g,) + s.shape, ("layers",) + s.logical,
+                            dtype=s.dtype, init=s.init, scale=s.scale,
+                            fan_in_axes=tuple(a + 1 for a in
+                                              (s.fan_in_axes or (0,)))),
+        tree,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill; fills the cache when one is given)
+# ---------------------------------------------------------------------------
+
+def _apply_sublayer(p, x: torch.Tensor, desc: LayerDesc, cfg: ModelConfig,
+                    positions: torch.Tensor,
+                    entry: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> torch.Tensor:
+    """One sub-layer over the whole sequence; with ``entry`` ({k, v} of
+    [B, cap, Kv, D]) its keys and values are written at [:, :S]."""
+    _check_dense(desc)
+    h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    window = cfg.local_window if desc.attn_type == "local" else None
+    out, (k, v) = attn_mod.self_attention(
+        p["attn"], h, attn_config(cfg), causal=True, window=window,
+        positions=positions)
+    if entry is not None:
+        s = k.shape[1]
+        entry["k"][:, :s] = k.to(entry["k"].dtype)
+        entry["v"][:, :s] = v.to(entry["v"].dtype)
+    if cfg.post_norm:
+        out = rmsnorm_apply(p["post_ln1"], out, cfg.norm_eps)
+    x = x + out
+    if desc.ff != "none":
+        h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+        out = mlp_apply(p["mlp"], h, act=cfg.act)
+        if cfg.post_norm:
+            out = rmsnorm_apply(p["post_ln2"], out, cfg.norm_eps)
+        x = x + out
+    return x
+
+
+def _entry(cache, key: str, g: int):
+    return None if cache is None else {n: t[g] for n, t in cache[key].items()}
+
+
+def run_blocks(blocks, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor, cache=None) -> torch.Tensor:
+    """Every block in order. ``cache`` (the stacked cache's 'blocks' part)
+    receives each sub-layer's keys and values."""
+    _check_one_card(cfg)
+    for g, bp in enumerate(blocks):
+        for i, desc in enumerate(cfg.pattern):
+            key = f"sub{i}"
+            x = _apply_sublayer(bp[key], x, desc, cfg, positions,
+                                _entry(cache, key, g))
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Decode (one token through all blocks, stacked cache)
+# ---------------------------------------------------------------------------
+
+def _sublayer_decode(p, x: torch.Tensor, desc: LayerDesc, cfg: ModelConfig,
+                     entry: Dict[str, torch.Tensor], pos: int
+                     ) -> torch.Tensor:
+    _check_dense(desc)
+    h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    window = cfg.local_window if desc.attn_type == "local" else None
+    ring = cfg.local_ring_cache and desc.attn_type == "local"
+    out, _, _ = attn_mod.decode_attention(
+        p["attn"], h, entry["k"], entry["v"], pos, attn_config(cfg),
+        window=window, ring=ring)
+    if cfg.post_norm:
+        out = rmsnorm_apply(p["post_ln1"], out, cfg.norm_eps)
+    x = x + out
+    if desc.ff != "none":
+        h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+        out = mlp_apply(p["mlp"], h, act=cfg.act)
+        if cfg.post_norm:
+            out = rmsnorm_apply(p["post_ln2"], out, cfg.norm_eps)
+        x = x + out
+    return x
+
+
+def decode_blocks(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
+                  pos: int) -> torch.Tensor:
+    """One token through the stack; the cache is updated in place."""
+    _check_one_card(cfg)
+    for g, bp in enumerate(blocks):
+        for i, desc in enumerate(cfg.pattern):
+            key = f"sub{i}"
+            x = _sublayer_decode(bp[key], x, desc, cfg, _entry(cache, key, g),
+                                 pos)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Cache specs
+# ---------------------------------------------------------------------------
+
+def sublayer_cache_spec(cfg: ModelConfig, desc: LayerDesc, batch: int,
+                        seq: int) -> Dict[str, Any]:
+    _check_dense(desc)
+    cap = seq
+    if cfg.local_ring_cache and desc.attn_type == "local":
+        cap = min(seq, cfg.local_window)
+    kvshape = (batch, cap, cfg.num_kv_heads, cfg.head_dim)
+    logical = ("batch", "seq", "kv_heads", "head_dim")
+    return {n: ParamSpec(kvshape, logical, dtype=cfg.compute_dtype,
+                         init="zeros") for n in ("k", "v")}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq: int):
+    block = {f"sub{i}": sublayer_cache_spec(cfg, d, batch, seq)
+             for i, d in enumerate(cfg.pattern)}
+    return stack_specs(block, cfg.num_blocks)

@@ -547,3 +547,76 @@ def test_concurrent_queries_equal_serial_on_the_card(cuda, tmp_path):
                     assert torch.equal(got.dists, want.dists)
     finally:
         eng.close()
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "minitron-8b"])
+def test_model_on_the_card_matches_the_cpu(cuda, arch):
+    """The smoke config in f32 (TF32 off), one set of weights: prefill
+    logits, its cache and one decode step on the card equal the CPU's
+    within atol = rtol = 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models import params as P
+
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    tree = P.initialize(M.model_specs(cfg), 0, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", cuda):
+            model = M.Model(cfg, _tree_to(tree, dev))
+            lg, cache = M.prefill(model, {"tokens": toks.to(dev)}, cfg,
+                                  capacity=17)
+            dl, _ = M.decode_step(model, toks[:, :1].to(dev), cache, 16,
+                                  cfg)
+            out[str(dev)] = (lg.cpu(), cache["blocks"]["sub0"]["k"].cpu(),
+                             dl.cpu())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_generate_on_the_card(cuda):
+    """generate with the entry point's default device: greedy tokens in
+    f32 equal the CPU's; bf16 tokens are in range, the cache on the
+    card."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models import params as P
+    from repro_torch.serve.serve_step import generate
+
+    cfg = get_smoke_config("gemma2-2b")
+    model = M.Model.init(cfg, 0)
+    assert model.device.type == "cuda"
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (3, 6)).astype(np.int32)
+    toks, aux = generate(model, cfg, prompt, 8)
+    assert toks.device.type == "cuda" and toks.shape == (3, 8)
+    assert bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    assert aux["cache"]["blocks"]["sub0"]["k"].shape[2] == 14
+    f32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    tree = P.initialize(M.model_specs(f32), 0, "cpu")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, _ = generate(M.Model(f32, _tree_to(tree, cuda)), f32, prompt, 8)
+        want, _ = generate(M.Model(f32, tree), f32, prompt, 8)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert torch.equal(got.cpu(), want)
