@@ -138,7 +138,29 @@ Phases, each of which fails the run by raising:
      are zeroed before and read after; K1, K4, lex_select and K3 must
      have run, and the path's kernel inputs are held against the plain
      versions;
-  12. kernels at the main path's shapes: each kernel against its plain
+  12. the MoE, SSM and hybrid families at full width in bf16 (seed 21),
+     one model at a time beside the serving phase's engines:
+     deepseek-moe-16b (28 of 28 layers), mamba2-370m (48 of 48),
+     jamba-v0.1-52b (16 of 32) and dbrx-132b (4 of 40), each one's
+     parameter count and bytes the reference's at that depth (FAM).
+     Sub-stacks at full width in f32 on the card (TF32 off) against the
+     CPU at 2 x 512 tokens, prefill and one decode step, at atol = rtol =
+     1e-3, with the routed ids equal, and in bf16 against the f32 CPU at
+     FAM_BF16_VS_F32: deepseek's first layer and one MoE block, one
+     mamba2 layer, jamba's (mamba, dense), (mamba, moe) and (attn, dense)
+     alone. At full depth, capacity factor 8.0: an 8192-token prefill and
+     32 decode steps (dbrx: 512 and 8) against one full forward over
+     both, at FAM_PATHS, every logit finite; the dropped fraction at the
+     published 1.25 and the dt values the prefill clipped are reported.
+     Prefill 8 x 512 and 1 x 8192 and decode at batch 1, 8 and 32 with a
+     2048-token cache timed beside their bounds (a decode step reads the
+     experts its tokens route to) and one profiled call's busy time.
+     Then deepseek behind launch/serve.py's static front over the
+     resident engine (one group of 8 requests, k = 10, 32 new tokens):
+     every request answered once, exact answers brute force's. Launch
+     counts are zeroed before and read after; K1, K4, lex_select and K3
+     must have run;
+  13. kernels at the main path's shapes: each kernel against its plain
      version, timed with CUDA events beside the plain version, one
      PyTorch library call where one computes the same function (for K3
      the cuBLAS expanded form; cdist beside it as ``cdist_ms``), and the
@@ -150,7 +172,7 @@ Phases, each of which fails the run by raising:
      D = 64 are timed too.
 
 Prints a ``{"serving": ...}`` line, an ``{"llm": ...}`` line, a
-``{"kernels": [...]}`` line, then
+``{"families": ...}`` line, a ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": ...}`` as its last line. Exits non-zero without a result when no CUDA device
 is present or the package is missing.
 """
@@ -2338,41 +2360,270 @@ def llm_device_busy(torch, fn) -> tuple:
     return sum(e.time_range.elapsed_us() for e in evs) / 1e3, len(evs)
 
 
+def llm_descs(cfg) -> list:
+    """Every sub-layer of the stack in order, deepseek's dense first layer
+    first."""
+    from repro_torch.models.model import FIRST_LAYER
+
+    return (([FIRST_LAYER] if cfg.dense_first_layer else [])
+            + list(cfg.pattern) * cfg.num_blocks)
+
+
+def llm_param_counts(cfg) -> dict:
+    """The config's parameters, bytes, active parameters per token and the
+    bytes of its expert stacks (the 'experts' axis), from its specs."""
+    from repro_torch.models import model as M
+    from repro_torch.models import params as P
+
+    specs = M.model_specs(cfg)
+    return dict(params=P.param_count(specs), bytes=P.param_bytes(specs),
+                active=cfg.active_param_count(),
+                expert_bytes=sum(s.size * s.dtype.itemsize
+                                 for _, s in P.spec_leaves(specs)
+                                 if "experts" in s.logical))
+
+
 def llm_kv_bytes(cfg) -> int:
-    """Bytes of KV cache per cached token over the whole stack."""
-    return (cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim
+    """Bytes of KV cache per cached token over the attention sub-layers."""
+    n_attn = sum(d.kind == "attn" for d in llm_descs(cfg))
+    return (n_attn * 2 * cfg.num_kv_heads * cfg.head_dim
             * cfg.compute_dtype.itemsize)
 
 
-def llm_prefill_bound(cfg, b: int, s: int) -> tuple:
-    """The least time of a prefill: every parameter outside the embedding
-    used once per token (2 operations each), the last position's logits,
-    and the attention as the chosen path computes it (scores and the
-    weighted sum over every entry the path scores, masked ones too),
-    over the bf16 peak; against every parameter read once and the KV
-    cache written once."""
-    ops = 2 * (LLM_PARAMS - cfg.vocab_size * cfg.d_model) * b * s
+def llm_ssm_bytes(cfg, b: int) -> int:
+    """Bytes of the mamba sub-layers' decode state (conv tails and h) at
+    batch b."""
+    if cfg.ssm is None:
+        return 0
+    from repro_torch.models.ssm import ssm_cache_shape
+
+    per = sum(int(np.prod(s)) for s in ssm_cache_shape(cfg.ssm, b).values())
+    n_mamba = sum(d.kind == "mamba" for d in llm_descs(cfg))
+    return n_mamba * per * cfg.compute_dtype.itemsize
+
+
+def llm_ssd_ops(cfg, b: int, s: int) -> int:
+    """f32 operations of the SSD products over every mamba sub-layer, as
+    ssd_chunked forms them at its chunk: C·B and the weighted sum within
+    each chunk, the chunk states and their contribution, the scan."""
+    if cfg.ssm is None:
+        return 0
+    from repro_torch.models.ssm import _chunk_for
+
+    c = _chunk_for(s, cfg.ssm.chunk)
+    h, n, p = cfg.ssm.n_heads, cfg.ssm.d_state, cfg.ssm.head_dim
+    per = 2 * b * (s // c) * h * (c * c * (n + p) + 2 * c * n * p + n * p)
+    return per * sum(d.kind == "mamba" for d in llm_descs(cfg))
+
+
+def llm_bound(n_bytes: float, bf16_ops: float, f32_ops: float) -> tuple:
+    """(bound ms, what bounds it, operations): the bytes over the memory
+    rate against the bf16 operations over the bf16 peak plus the f32 ones
+    (the SSD scan, TF32 off) over the f32 peak."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = (bf16_ops / PEAK_BF16_FLOPS + f32_ops / PEAK_F32_FLOPS) * 1e3
+    by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return by + (bf16_ops + f32_ops,)
+
+
+def llm_prefill_bound(cfg, counts: dict, b: int, s: int) -> tuple:
+    """The least time of a prefill: every active parameter outside the
+    embedding and head used once per token (2 operations each), the last
+    position's logits, the attention as the chosen path computes it
+    (scores and the weighted sum over every entry the path scores, masked
+    ones too) and the SSD's products; against every parameter read once
+    and the cache written once."""
+    emb = cfg.vocab_size * cfg.d_model
+    ops = 2 * (counts["active"] - emb * (1 if cfg.tie_embeddings else 2)
+               ) * b * s
     ops += 2 * b * cfg.d_model * cfg.vocab_size
     blockwise = s > cfg.attn_dense_threshold and s % cfg.attn_chunk_q == 0
-    for i in range(cfg.num_layers):
-        local = cfg.pattern[i % cfg.period].attn_type == "local"
+    for d in llm_descs(cfg):
+        if d.kind != "attn":
+            continue
         keys = s
-        if blockwise and local and cfg.local_window + cfg.attn_chunk_q < s:
+        if (blockwise and d.attn_type == "local"
+                and cfg.local_window + cfg.attn_chunk_q < s):
             keys = cfg.local_window + cfg.attn_chunk_q
         ops += 4 * b * cfg.num_heads * cfg.head_dim * s * keys
-    n_bytes = LLM_BYTES + llm_kv_bytes(cfg) * b * s
-    return bound_ms(n_bytes, ops, PEAK_BF16_FLOPS) + (ops,)
+    n_bytes = (counts["bytes"] + llm_kv_bytes(cfg) * b * s
+               + llm_ssm_bytes(cfg, b))
+    return llm_bound(n_bytes, ops, llm_ssd_ops(cfg, b, s))
 
 
-def llm_decode_bound(cfg, b: int, cap: int) -> tuple:
-    """The least time of a decode step: every parameter read once (the
-    tied logits read the whole table) and the KV cache read at capacity,
-    as the reference reads it; against 2 operations per parameter and the
-    attention over the capacity, per token."""
-    n_bytes = LLM_BYTES + llm_kv_bytes(cfg) * b * cap
-    ops = 2 * LLM_PARAMS * b + (4 * b * cfg.num_heads * cfg.head_dim * cap
-                                * cfg.num_layers)
-    return bound_ms(n_bytes, ops, PEAK_BF16_FLOPS) + (ops,)
+def llm_decode_bound(cfg, counts: dict, b: int, cap: int,
+                     routed_bytes: int = 0) -> tuple:
+    """The least time of a decode step: every parameter outside the experts
+    read once (the tied logits read the whole table), the experts that the
+    step's tokens route to (``routed_bytes``), the KV cache read at
+    capacity, as the reference reads it, and the SSM state read and
+    written; against 2 operations per active parameter used per token (an
+    untied embedding is a lookup), the attention over the capacity and
+    the state update and read-out per token."""
+    n_bytes = (counts["bytes"] - counts["expert_bytes"] + routed_bytes
+               + llm_kv_bytes(cfg) * b * cap + 2 * llm_ssm_bytes(cfg, b))
+    lookup = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
+    n_attn = sum(d.kind == "attn" for d in llm_descs(cfg))
+    ops = 2 * (counts["active"] - lookup) * b + (
+        4 * b * cfg.num_heads * cfg.head_dim * cap * n_attn)
+    f32_ops = 0
+    if cfg.ssm is not None:
+        n_mamba = sum(d.kind == "mamba" for d in llm_descs(cfg))
+        f32_ops = 4 * b * cfg.ssm.n_heads * cfg.ssm.d_state * (
+            cfg.ssm.head_dim) * n_mamba
+    return llm_bound(n_bytes, ops, f32_ops)
+
+
+class Hooked:
+    """``mod.name`` wrapped while inside ``with``: ``hook(args, result)``
+    after every call."""
+
+    def __init__(self, mod, name, hook):
+        self.mod, self.name, self.hook = mod, name, hook
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.mod, self.name)
+
+        def call(*args, **kw):
+            out = orig(*args, **kw)
+            self.hook(args, out)
+            return out
+
+        setattr(self.mod, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+
+def llm_prefill_decode(torch, M, model, cfg, toks, dev, nxt=None,
+                       routed=None, gaps=None):
+    """Prefill of toks (capacity one more) and one decode step, on dev:
+    (prefill logits, decode logits, the token fed), on the host; the token
+    is the prefill's argmax unless ``nxt`` is given. The router's top-k
+    ids of every MoE call are appended to ``routed``, and the smallest gap
+    between each call's k-th and (k+1)-th probabilities to ``gaps``."""
+    from repro_torch.models import moe
+
+    def hook(args, res):
+        if routed is not None:
+            routed.append(res[1].cpu())
+        if gaps is not None:
+            k = cfg.moe.top_k
+            srt = torch.softmax(args[0].float(), -1).sort(
+                -1, descending=True).values
+            gaps.append(float((srt[:, k - 1] - srt[:, k]).min()))
+
+    n = toks.shape[1]
+    with Hooked(moe, "_route", hook):
+        lg, cache = M.prefill(model, {"tokens": toks.to(dev)}, cfg,
+                              capacity=n + 1)
+        if nxt is None:
+            nxt = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        dl, _ = M.decode_step(model, nxt.to(dev), cache, n, cfg)
+    return lg.float().cpu(), dl.float().cpu(), nxt.cpu()
+
+
+def llm_card_vs_cpu(torch, M, P, what, cfg1, toks, seed, bf16_tol):
+    """An f32 (sub-)stack at full width drawn on the card from ``seed``:
+    the prefill of toks and one decode step on the card (TF32 off) against
+    the CPU at LLM_F32_TOL with the same routed ids, then in bf16 on the
+    card against the f32 CPU at ``bf16_tol``. Returns (max abs errors,
+    the smallest top-k router gap or None)."""
+    import dataclasses
+
+    tree = P.initialize(M.model_specs(cfg1), seed, "cuda")
+    ids_c, ids_g, gaps = [], [], []
+    lg_c, dl_c, nxt = llm_prefill_decode(
+        torch, M, M.Model(cfg1, llm_map(lambda t: t.cpu(), tree)), cfg1, toks,
+        "cpu", routed=ids_c, gaps=gaps)
+    lg_g, dl_g, _ = llm_prefill_decode(torch, M, M.Model(cfg1, tree), cfg1,
+                                       toks, "cuda", nxt, routed=ids_g)
+    if len(ids_c) != len(ids_g) or not all(
+            torch.equal(a, c) for a, c in zip(ids_c, ids_g)):
+        raise AssertionError(f"{what}: the card routed other experts than "
+                             "the CPU")
+    errs = {"f32 prefill": close(torch, lg_g, lg_c, f"{what} f32 prefill",
+                                 LLM_F32_TOL, LLM_F32_TOL),
+            "f32 decode": close(torch, dl_g, dl_c, f"{what} f32 decode",
+                                LLM_F32_TOL, LLM_F32_TOL)}
+    cfg16 = dataclasses.replace(cfg1, param_dtype=torch.bfloat16,
+                                compute_dtype=torch.bfloat16)
+    tree16 = llm_map(lambda t, s: t.to(s.dtype), tree, M.model_specs(cfg16))
+    del tree
+    lg_h, dl_h, _ = llm_prefill_decode(torch, M, M.Model(cfg16, tree16),
+                                       cfg16, toks, "cuda", nxt)
+    del tree16
+    errs["bf16 prefill"] = close(torch, lg_h, lg_c, f"{what} bf16 prefill",
+                                 **bf16_tol)
+    errs["bf16 decode"] = close(torch, dl_h, dl_c, f"{what} bf16 decode",
+                                **bf16_tol)
+    torch.cuda.empty_cache()
+    return errs, (min(gaps) if gaps else None)
+
+
+def llm_timings(torch, M, model, cfg, counts: dict, g) -> list:
+    """Prefill (LLM_PREFILL_SHAPES) and decode (LLM_DECODE_BATCHES with an
+    LLM_DECODE_CACHE-token cache) by CUDA events beside their bounds and
+    one profiled call's device-busy time. A decode step's bound reads the
+    experts its tokens route to, recorded in one untimed step."""
+    from repro_torch.models import moe
+
+    rows = []
+    for b, s in LLM_PREFILL_SHAPES:
+        t = torch.randint(0, cfg.vocab_size, (b, s), generator=g).cuda()
+
+        def pre(t=t):
+            return M.prefill(model, {"tokens": t}, cfg)
+
+        ms = llm_events_ms(torch, pre, 3)
+        busy, kernels = llm_device_busy(torch, pre)
+        bound, by, ops = llm_prefill_bound(cfg, counts, b, s)
+        rows.append(dict(what="prefill", batch=b, tokens=s, ms=ms,
+                         tokens_per_s=b * s / ms * 1e3, bound_ms=bound,
+                         bound_by=by, flops=ops, device_busy_ms=busy,
+                         device_ops=kernels))
+    per_expert = 0
+    if cfg.moe is not None:
+        per_expert = 3 * cfg.d_model * cfg.moe.d_ff_expert * (
+            cfg.param_dtype.itemsize)
+    for b in LLM_DECODE_BATCHES:
+        cache = M.alloc_cache(cfg, b, LLM_DECODE_CACHE, "cuda")
+        t = torch.randint(0, cfg.vocab_size, (b, 1), generator=g).cuda()
+
+        def step(t=t, cache=cache):
+            return M.decode_step(model, t, cache, LLM_DECODE_CACHE - 1, cfg)
+
+        used = []
+        with Hooked(moe, "_route", lambda a, r, used=used: used.append(
+                int(r[1].unique().numel()))):
+            step()
+        ms = llm_events_ms(torch, step, 10)
+        busy, kernels = llm_device_busy(torch, step)
+        del cache, step  # 7 GB at batch 32 (gemma)
+        bound, by, ops = llm_decode_bound(cfg, counts, b, LLM_DECODE_CACHE,
+                                          sum(used) * per_expert)
+        rows.append(dict(what="decode", batch=b, tokens=LLM_DECODE_CACHE,
+                         ms=ms, tokens_per_s=b / ms * 1e3, bound_ms=bound,
+                         bound_by=by, flops=ops, device_busy_ms=busy,
+                         device_ops=kernels,
+                         experts_read=sum(used) if used else None))
+    return rows
+
+
+def print_llm_timings(label: str, card: str, rows) -> None:
+    print(f"  {label}: timings by CUDA events on {card} (prefill: batch x "
+          f"tokens; decode: one step at batch B with a {LLM_DECODE_CACHE}-"
+          "token cache):")
+    for r in rows:
+        print(f"    {r['what']:7s} {r['batch']:2d} x {r['tokens']:5d}: "
+              f"{r['ms']:9.3f} ms, {r['tokens_per_s']:10.1f} tokens/s, "
+              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
+              f"{r['bound_ms'] / r['ms']:.3f} of it; the device busy "
+              f"{r['device_busy_ms']:.3f} ms of a profiled call "
+              f"({r['device_ops']} kernels and copies)"
+              + (f"; {r['experts_read']} experts read"
+                 if r.get("experts_read") else ""))
 
 
 def phase_llm_model(torch):
@@ -2387,6 +2638,7 @@ def phase_llm_model(torch):
 
     info = {}
     cfg = get_config(LLM_ARCH)
+    counts = llm_param_counts(cfg)
     g = torch.Generator().manual_seed(LLM_SEED)
 
     # ---- a. the full-width model, bf16, on the card
@@ -2415,38 +2667,10 @@ def phase_llm_model(torch):
     cfg1 = dataclasses.replace(cfg, num_layers=cfg.period,
                                param_dtype=torch.float32,
                                compute_dtype=torch.float32)
-    tree = P.initialize(M.model_specs(cfg1), LLM_SEED, "cuda")
     toks = torch.randint(0, cfg.vocab_size, (LLM_BLOCK_BATCH, LLM_BLOCK_LEN),
                          generator=g)
-
-    def prefill_decode(model_, cfg_, dev, nxt=None):
-        lg, cache = M.prefill(model_, {"tokens": toks.to(dev)}, cfg_,
-                              capacity=LLM_BLOCK_LEN + 1)
-        if nxt is None:
-            nxt = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-        dl, _ = M.decode_step(model_, nxt.to(dev), cache, LLM_BLOCK_LEN,
-                              cfg_)
-        return lg.float().cpu(), dl.float().cpu(), nxt.cpu()
-
-    lg_c, dl_c, nxt = prefill_decode(
-        M.Model(cfg1, llm_map(lambda t: t.cpu(), tree)), cfg1, "cpu")
-    lg_g, dl_g, _ = prefill_decode(M.Model(cfg1, tree), cfg1, "cuda", nxt)
-    errs = {"f32 prefill": close(torch, lg_g, lg_c, "llm b f32 prefill",
-                                 LLM_F32_TOL, LLM_F32_TOL),
-            "f32 decode": close(torch, dl_g, dl_c, "llm b f32 decode",
-                                LLM_F32_TOL, LLM_F32_TOL)}
-    cfg16 = dataclasses.replace(cfg1, param_dtype=torch.bfloat16,
-                                compute_dtype=torch.bfloat16)
-    tree16 = llm_map(lambda t, s: t.to(s.dtype), tree, M.model_specs(cfg16))
-    del tree
-    lg_h, dl_h, _ = prefill_decode(M.Model(cfg16, tree16), cfg16, "cuda",
-                                   nxt)
-    del tree16
     tol = LLM_BF16_VS_F32
-    errs["bf16 prefill"] = close(torch, lg_h, lg_c, "llm b bf16 prefill",
-                                 **tol)
-    errs["bf16 decode"] = close(torch, dl_h, dl_c, "llm b bf16 decode",
-                                **tol)
+    errs, _ = llm_card_vs_cpu(torch, M, P, "llm b", cfg1, toks, LLM_SEED, tol)
     info["block_errors"] = errs
     print(f"  llm b: one block ({cfg1.num_layers} layers: "
           f"{', '.join(d.attn_type for d in cfg.pattern)}) at full width, "
@@ -2502,46 +2726,8 @@ def phase_llm_model(torch):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     info["card"] = smi.stdout.strip().splitlines()[0]
-    timings = []
-    for b, s in LLM_PREFILL_SHAPES:
-        t = torch.randint(0, cfg.vocab_size, (b, s), generator=g).cuda()
-
-        def pre(t=t):
-            return M.prefill(model, {"tokens": t}, cfg)
-
-        ms = llm_events_ms(torch, pre, 3)
-        busy, kernels = llm_device_busy(torch, pre)
-        bound, by, ops = llm_prefill_bound(cfg, b, s)
-        timings.append(dict(what="prefill", batch=b, tokens=s, ms=ms,
-                            tokens_per_s=b * s / ms * 1e3, bound_ms=bound,
-                            bound_by=by, flops=ops, device_busy_ms=busy,
-                            device_ops=kernels))
-    for b in LLM_DECODE_BATCHES:
-        cache = M.alloc_cache(cfg, b, LLM_DECODE_CACHE, "cuda")
-        t = torch.randint(0, cfg.vocab_size, (b, 1), generator=g).cuda()
-
-        def step(t=t, cache=cache):
-            return M.decode_step(model, t, cache, LLM_DECODE_CACHE - 1, cfg)
-
-        ms = llm_events_ms(torch, step, 10)
-        busy, kernels = llm_device_busy(torch, step)
-        del cache, step  # 7 GB at batch 32
-        bound, by, ops = llm_decode_bound(cfg, b, LLM_DECODE_CACHE)
-        timings.append(dict(what="decode", batch=b, tokens=LLM_DECODE_CACHE,
-                            ms=ms, tokens_per_s=b / ms * 1e3, bound_ms=bound,
-                            bound_by=by, flops=ops, device_busy_ms=busy,
-                            device_ops=kernels))
-    info["timings"] = timings
-    print(f"  llm d: timings by CUDA events on {info['card']} (prefill: "
-          f"batch x tokens; decode: one step at batch B with a "
-          f"{LLM_DECODE_CACHE}-token cache):")
-    for r in timings:
-        print(f"    {r['what']:7s} {r['batch']:2d} x {r['tokens']:5d}: "
-              f"{r['ms']:9.3f} ms, {r['tokens_per_s']:10.1f} tokens/s, "
-              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
-              f"{r['bound_ms'] / r['ms']:.3f} of it; the device busy "
-              f"{r['device_busy_ms']:.3f} ms of a profiled call "
-              f"({r['device_ops']} kernels and copies)")
+    info["timings"] = llm_timings(torch, M, model, cfg, counts, g)
+    print_llm_timings("llm d", info["card"], info["timings"])
     return model, cfg, info
 
 
@@ -2596,6 +2782,44 @@ def same_exact(name, a, b):
     return n
 
 
+def llm_live_rows(torch, live, writes):
+    """The serving phase's resident engine's live rows after its write
+    point, on the card, and their global ids."""
+    keep = ~np.isin(live["all_ids"], writes["del_ids"])
+    rows = torch.cat([live["rows"][torch.as_tensor(keep, device="cuda")],
+                      torch.as_tensor(writes["ins_rows"], device="cuda")])
+    return rows, np.concatenate([live["all_ids"][keep], writes["ins_ids"]])
+
+
+def llm_exact_checker(torch, S, path, held, what, series, rows, ids, k,
+                      atol):
+    """Brute force over rows (global ids ``ids``) for every request's
+    series ({uid: series}), its kernel inputs held into ``held``; returns
+    check(request, retrieval entry): an exact answer has brute force's
+    ids, up to ties, at its distances."""
+    dev = "cuda"
+    ids_t = torch.as_tensor(ids, device=dev)
+    pos = torch.zeros(int(ids_t.max()) + 1, dtype=torch.long, device=dev)
+    pos[ids_t.long()] = torch.arange(ids_t.shape[0], device=dev)
+    uids = list(series)
+    qs = torch.as_tensor(np.stack([series[u] for u in uids]), device=dev)
+    with path:
+        truth = S.brute_force(qs, rows, k, device=dev)
+    held.extend(path.check(f"{what} brute force", atol))
+    t_ids = ids_t[truth.ids.long()].to(torch.int32)
+    row_of = {u: i for i, u in enumerate(uids)}
+
+    def check(r, ret):
+        i, where = row_of[r.uid], f"{what} request {r.uid}"
+        got = torch.as_tensor(ret["ids"], device=dev)[None]
+        ties_only(torch, got, t_ids[i:i + 1],
+                  sq_dist64(torch, qs[i:i + 1], rows, pos), where)
+        close(torch, torch.as_tensor(ret["dists"], device=dev) ** 2,
+              truth.dists[i] ** 2, where, atol, DIST_RTOL)
+
+    return check
+
+
 def phase_llm_serving(torch, S, model, cfg, resident, live, writes, q, f_ms,
                       root: Path, path):
     """Part e of the LLM phase: both fronts of launch/serve.py at full width
@@ -2615,30 +2839,8 @@ def phase_llm_serving(torch, S, model, cfg, resident, live, writes, q, f_ms,
     rng = np.random.default_rng(LLM_SEED)
 
     def exact_checker(what, series, rows, ids, k, atol):
-        """Brute force over rows (global ids ``ids``) for every request's
-        series ({uid: series}); returns check(request, retrieval entry):
-        an exact answer has brute force's ids, up to ties, at its
-        distances."""
-        ids_t = torch.as_tensor(ids, device=dev)
-        pos = torch.zeros(int(ids_t.max()) + 1, dtype=torch.long, device=dev)
-        pos[ids_t.long()] = torch.arange(ids_t.shape[0], device=dev)
-        uids = list(series)
-        qs = torch.as_tensor(np.stack([series[u] for u in uids]), device=dev)
-        with path:
-            truth = S.brute_force(qs, rows, k, device=dev)
-        held.extend(path.check(f"llm {what} brute force", atol))
-        t_ids = ids_t[truth.ids.long()].to(torch.int32)
-        row_of = {u: i for i, u in enumerate(uids)}
-
-        def check(r, ret):
-            i, where = row_of[r.uid], f"llm {what} request {r.uid}"
-            got = torch.as_tensor(ret["ids"], device=dev)[None]
-            ties_only(torch, got, t_ids[i:i + 1],
-                      sq_dist64(torch, qs[i:i + 1], rows, pos), where)
-            close(torch, torch.as_tensor(ret["dists"], device=dev) ** 2,
-                  truth.dists[i] ** 2, where, atol, DIST_RTOL)
-
-        return check
+        return llm_exact_checker(torch, S, path, held, f"llm {what}", series,
+                                 rows, ids, k, atol)
 
     def run_fronts(what, eng, reqs_of, gkw, k, max_batch, check, atol):
         outs = {}
@@ -2660,10 +2862,7 @@ def phase_llm_serving(torch, S, model, cfg, resident, live, writes, q, f_ms,
               "same tokens and ids on each")
 
     # ---- over the serving phase's resident engine
-    keep = ~np.isin(live["all_ids"], writes["del_ids"])
-    rows = torch.cat([live["rows"][torch.as_tensor(keep, device=dev)],
-                      torch.as_tensor(writes["ins_rows"], device=dev)])
-    ids = np.concatenate([live["all_ids"][keep], writes["ins_ids"]])
+    rows, ids = llm_live_rows(torch, live, writes)
     lens = rng.integers(RAG_PROMPT[0], RAG_PROMPT[1] + 1, size=RAG_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in lens]
@@ -2753,6 +2952,300 @@ def print_llm_table(rows) -> None:
               f"{r['rejected']:8d} {r['p50']:9.1f} {r['p99']:9.1f} "
               f"{r['generate_ms']:9.1f} {r['retrieval_ms']:9.1f} "
               f"{r['rps']:6.2f}")
+
+
+# the families (phase 12): the MoE, SSM and hybrid decoders at full width
+# in bf16, weights drawn on the card from FAM_SEED, one after another; each
+# at the depth below with the reference's param_count and param_bytes at
+# that depth (widths, experts, top-k, state sizes and vocabularies as
+# published; jamba keeps 2 of its 4 8-layer blocks, dbrx 4 of its 40
+# layers, where the whole would not fit in 80 GB)
+FAM_SEED = 21
+FAM = {
+    "deepseek-moe-16b": (28, 16_375_728_128, 32_758_767_616),
+    "mamba2-370m": (48, 368_227_840, 736_761_856),
+    "jamba-v0.1-52b": (16, 25_998_322_688, 51_998_204_416),
+    "dbrx-132b": (4, 14_269_470_720, 28_539_838_464),
+}
+# b: sub-stacks at full width, the card (f32, TF32 off) against the CPU at
+# LLM_F32_TOL, and bf16 on the card against f32 on the CPU at
+# FAM_BF16_VS_F32, gemma's (an H100 showed at most 0.039 on deepseek and
+# jamba, and 1.78 on mamba2's tied logits of up to about 220);
+# FAM_BLOCK prompts x tokens (two SSD chunks of 256)
+FAM_BLOCK = (2, 512)
+FAM_BF16_VS_F32 = dict(atol=2.0, rtol=0.02)
+# c: a FAM_LONG prefill and FAM_DECODE steps against one full forward over
+# both (dbrx: FAM_LONG_DBRX), at capacity factor 8.0 so that no copy is
+# dropped (the reference's test_prefill_decode_consistency); the full
+# forward's attention runs blockwise at FAM_FULL_CHUNK (which divides
+# 8224) where the dense path's f32 score arrays would take more than
+# FAM_SCORE_BYTES. bf16 stacks without SSM layers are held at FAM_PATHS,
+# about twice the largest error an H100 showed (deepseek 1.66). With SSM
+# layers, bf16 is reported, not held: 48 random mamba2 layers carry a
+# rounding flip of one path far (mamba2's two prefill paths, chunk 256
+# and chunk 32, differed by 18.5 on logits of up to 221 in bf16 and by
+# 0.016 in f32); a model whose f32 copy takes at most FAM_F32_BYTES
+# (mamba2) runs the check in f32 too, held at FAM_F32_PATHS (its largest
+# error on an H100 0.014)
+FAM_LONG, FAM_DECODE = 8192, 32
+FAM_LONG_DBRX, FAM_DECODE_DBRX = 512, 8
+FAM_PATHS = dict(atol=4.0, rtol=0.02)
+FAM_F32_PATHS, FAM_F32_BYTES = dict(atol=0.05, rtol=1e-3), 4e9
+FAM_FULL_CHUNK, FAM_SCORE_BYTES = 32, 16e9
+# e: deepseek behind the static front over the serving phase's resident
+# engine: one group of FAM_REQUESTS requests
+FAM_REQUESTS = 8
+
+
+def fam_sub_stacks(torch, cfg):
+    """Part b's sub-stacks at full width, in f32: (name, config)."""
+    import dataclasses
+
+    from repro_torch.configs import LayerDesc
+
+    f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32)
+    if cfg.name == "deepseek-moe-16b":
+        return [("first_layer + one MoE block",
+                 dataclasses.replace(cfg, num_layers=2, **f32))]
+    if cfg.name == "mamba2-370m":
+        return [("one layer", dataclasses.replace(cfg, num_layers=1, **f32))]
+    if cfg.name == "jamba-v0.1-52b":
+        return [(f"{kind} + {ff}", dataclasses.replace(
+            cfg, num_layers=1, pattern=(LayerDesc(kind, "global", ff),),
+            **f32)) for kind, ff in (("mamba", "dense"), ("mamba", "moe"),
+                                     ("attn", "dense"))]
+    return []  # dbrx: deepseek covers the MoE arithmetic
+
+
+def fam_card_vs_cpu(torch, M, P, cfg, g) -> dict:
+    """Part b: llm_card_vs_cpu on each of the config's sub-stacks."""
+    out = {}
+    b, n = FAM_BLOCK
+    toks = torch.randint(0, cfg.vocab_size, (b, n), generator=g)
+    tol = FAM_BF16_VS_F32
+    for name, cfg1 in fam_sub_stacks(torch, cfg):
+        errs, gap = llm_card_vs_cpu(torch, M, P, f"{cfg.name} b {name}", cfg1,
+                                    toks, FAM_SEED, tol)
+        print(f"  {cfg.name} b: {name} at full width, {b} prompts of {n} "
+              f"tokens, prefill and one decode step: the card (f32, TF32 "
+              f"off) equals the CPU within atol = rtol = {LLM_F32_TOL}, bf16"
+              f" on the card the f32 CPU within atol {tol['atol']}, rtol "
+              f"{tol['rtol']}; max abs errors " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in errs.items())
+              + ("" if gap is None else "; routed ids equal on both, "
+                 f"smallest top-k gap {gap:.3g}"))
+        out[name] = dict(errs, topk_gap=gap)
+    return out
+
+
+def fam_decode_check(torch, M, moe, ssm, model, cfg, g, tol) -> dict:
+    """Part c: a long prefill, decode steps from its cache against one full
+    forward over both, at capacity factor 8.0, held at ``tol`` (None:
+    reported only); the dropped fraction at the published factor and the
+    count of dt values the prefill clipped."""
+    import dataclasses
+
+    long_n, steps = ((FAM_LONG_DBRX, FAM_DECODE_DBRX)
+                     if cfg.name == "dbrx-132b" else (FAM_LONG, FAM_DECODE))
+    info = {}
+    long = torch.randint(0, cfg.vocab_size, (1, long_n), generator=g
+                         ).to("cuda")
+    ccfg = cfg
+    if cfg.moe is not None:
+        drops = []
+        with Hooked(moe, "moe_apply",
+                    lambda a, r: drops.append(r[1]["moe_dropped_frac"])):
+            M.prefill(model, {"tokens": long}, cfg)
+        drops = torch.stack(drops).float().cpu()
+        info.update(dropped_mean=float(drops.mean()),
+                    dropped_max=float(drops.max()))
+        ccfg = dataclasses.replace(
+            cfg, moe=cfg.moe._replace(capacity_factor=8.0))
+    clipped, seen = [0, 0], [0]
+
+    def count_dt(args, _):
+        params, dt, scfg = args[0], args[4], args[5]
+        sp = torch.nn.functional.softplus(dt.float() + params["dt_bias"])
+        clipped[0] += int((sp < scfg.dt_min).sum())
+        clipped[1] += int((sp > scfg.dt_max * 100.0).sum())
+        seen[0] += sp.numel()
+
+    with Hooked(ssm, "_activate", count_dt):
+        lg_p, cache = M.prefill(model, {"tokens": long}, ccfg,
+                                capacity=long_n + steps)
+    if cfg.ssm is not None:
+        info.update(dt_below_min=clipped[0], dt_above_max=clipped[1],
+                    dt_values=seen[0])
+    dec, tok = [], lg_p[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    fed = [tok]
+    for t in range(steps):
+        lg, cache = M.decode_step(model, tok, cache, long_n + t, ccfg)
+        dec.append(lg)
+        tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        fed.append(tok)
+    del cache
+    full = torch.cat([long] + fed[:-1], dim=1)
+    fcfg = ccfg
+    n_full = full.shape[1]
+    if (any(d.kind == "attn" for d in llm_descs(cfg)) and 3 * cfg.num_heads
+            * n_full * n_full * 4 > FAM_SCORE_BYTES):
+        fcfg = dataclasses.replace(ccfg, attn_chunk_q=FAM_FULL_CHUNK)
+        info["full_chunk"] = FAM_FULL_CHUNK
+    torch.cuda.empty_cache()  # jamba's full forward needs unfragmented room
+    x = M._backbone(model, full, fcfg)
+    lg_full = M._logits(model, x[:, long_n:], fcfg)
+    del x
+    lg_dec = torch.cat(dec, dim=1)
+    for what, t in (("prefill", lg_p), ("decode", lg_dec),
+                    ("full", lg_full)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{cfg.name} c: a non-finite {what} logit")
+    err = float((lg_dec.float() - lg_full.float()).abs().max())
+    agree = float((lg_dec.argmax(-1) == lg_full.argmax(-1)).float().mean())
+    info.update(prefill=long_n, steps=steps, decode_err=err,
+                decode_argmax_agree=agree)
+    print(f"  {cfg.name} c: {long_n}-token prefill, {steps} decode steps "
+          f"in {str(cfg.compute_dtype).rsplit('.', 1)[-1]} "
+          f"from its cache against one full {n_full}-token forward"
+          + (f" (attention blockwise at chunk {FAM_FULL_CHUNK})"
+             if "full_chunk" in info else "")
+          + f", capacity factor 8.0: max abs error {err:.3g}, argmax equal "
+          f"at {agree:.3f} of the steps; every logit finite"
+          + (f"; at the published {cfg.moe.capacity_factor} the prefill "
+             f"dropped {info['dropped_mean']:.4f} of the copies (mean over "
+             f"layers; max {info['dropped_max']:.4f})" if cfg.moe else "")
+          + (f"; the prefill clipped {clipped[0]} of {seen[0]} dt values up"
+             f" to dt_min and {clipped[1]} down to 100 dt_max"
+             if cfg.ssm else "")
+          + ("; reported, not held" if tol is None else
+             f"; held at atol {tol['atol']}, rtol {tol['rtol']}"))
+    if tol is not None:
+        close(torch, lg_dec, lg_full, f"{cfg.name} c decode vs full", **tol)
+    return info
+
+
+def fam_serving(torch, S, model, cfg, resident, live, writes, q, f_ms,
+                path) -> tuple:
+    """Part e: one static group of FAM_REQUESTS requests behind
+    launch/serve.py's static front over the serving phase's resident
+    engine. Returns (table row, kernel inputs held)."""
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.serve import Request
+
+    held = []
+    rng = np.random.default_rng(FAM_SEED)
+    rows, ids = llm_live_rows(torch, live, writes)
+    lens = rng.integers(RAG_PROMPT[0], RAG_PROMPT[1] + 1, size=FAM_REQUESTS)
+    series = {i: q[i % q.shape[0]] for i in range(FAM_REQUESTS)}
+    mix = [SERVE_MIX[i % len(SERVE_MIX)] for i in range(FAM_REQUESTS)]
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=n
+                                               ).astype(np.int32),
+                    max_new_tokens=RAG_NEW,
+                    deadline_ms=None if m is None else m * f_ms,
+                    series=series[i])
+            for i, (n, m) in enumerate(zip(lens, mix))]
+    check = llm_exact_checker(torch, S, path, held, f"{cfg.name} e", series,
+                              rows, ids, RAG_K, DIST_ATOL)
+    with path:
+        t0 = time.perf_counter()
+        results = serve_requests(model, cfg, reqs,
+                                 engine=ShareGathers(resident),
+                                 retrieval_k=RAG_K, max_batch=FAM_REQUESTS,
+                                 guarantee_kw={"full_budget_ms": f_ms})
+        wall = time.perf_counter() - t0
+    held.extend(path.check(f"{cfg.name} e static"))
+    row = llm_front_row(f"{cfg.name} static", results, reqs, wall, check)
+    row["flow"] = "families"
+    return row, held
+
+
+def phase_families(torch, S, resident, live, writes, q, f_ms, path):
+    """The MoE, SSM and hybrid families at full width, one after another
+    (parts a-d each; part e for deepseek). Returns (info, table rows,
+    kernel inputs held)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import moe, ssm
+    from repro_torch.models import params as P
+
+    info, table, held = {}, [], []
+    info["allocated_gb_before"] = torch.cuda.memory_allocated() / 1e9
+    for arch, (depth, want_par, want_bytes) in FAM.items():
+        t_arch = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+        g = torch.Generator().manual_seed(FAM_SEED)
+        res = {"layers": depth}
+
+        # ---- b first: the f32 sub-stacks must not sit beside the model
+        res["card_vs_cpu"] = fam_card_vs_cpu(torch, M, P, cfg, g)
+
+        # ---- a. the model at full width, bf16, on the card
+        t0 = time.perf_counter()
+        model = M.Model.init(cfg, FAM_SEED, "cuda")
+        torch.cuda.synchronize()
+        counts = llm_param_counts(cfg)
+        held_par = sum(p.numel() for p in model.parameters())
+        held_bytes = sum(p.numel() * p.element_size()
+                         for p in model.parameters())
+        if (counts["params"], counts["bytes"], held_par, held_bytes) != (
+                want_par, want_bytes) * 2:
+            raise AssertionError(
+                f"{arch}: {counts['params']} parameters in "
+                f"{counts['bytes']} bytes ({held_par} in {held_bytes} on "
+                f"the card), the reference counts {want_par} in "
+                f"{want_bytes} at {depth} layers")
+        res.update(params=counts["params"], param_bytes=counts["bytes"],
+                   active=counts["active"],
+                   init_s=time.perf_counter() - t0,
+                   mem_gb=torch.cuda.memory_allocated() / 1e9)
+        print(f"  {arch} a: {depth} of {get_config(arch).num_layers} layers"
+              f" at full width (d_model {cfg.d_model}, vocab "
+              f"{cfg.vocab_size}): {counts['params']} parameters, "
+              f"{counts['bytes']} bytes, the reference's count at this "
+              f"depth; {counts['active']} active per token; initialized on "
+              f"the card in {res['init_s']:.1f} s "
+              f"({res['mem_gb']:.1f} GB allocated)")
+
+        # ---- c. decode against the full forward, in bf16 and, where the
+        # f32 copy fits beside it, in f32 (the same draws before the cast)
+        res.update(fam_decode_check(torch, M, moe, ssm, model, cfg, g,
+                                    None if cfg.ssm else FAM_PATHS))
+        if 2 * counts["bytes"] <= FAM_F32_BYTES:
+            cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                        compute_dtype=torch.float32)
+            m32 = M.Model.init(cfg32, FAM_SEED, "cuda")
+            res["f32"] = fam_decode_check(
+                torch, M, moe, ssm, m32, cfg32,
+                torch.Generator().manual_seed(FAM_SEED), FAM_F32_PATHS)
+            del m32
+
+        # ---- d. timings
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60, check=True)
+        card = smi.stdout.strip().splitlines()[0]
+        res["card"] = card
+        res["timings"] = llm_timings(torch, M, model, cfg, counts, g)
+        print_llm_timings(f"{arch} d", card, res["timings"])
+
+        # ---- e. retrieval-augmented serving, deepseek only
+        if arch == "deepseek-moe-16b":
+            row, h = fam_serving(torch, S, model, cfg, resident, live, writes,
+                                 q, f_ms, path)
+            table.append(row)
+            held.extend(h)
+            res["serving"] = row
+        del model
+        torch.cuda.empty_cache()
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["seconds"] = time.perf_counter() - t_arch
+        print(f"  {arch}: {res['seconds']:.1f} s, peak {res['peak_gb']:.1f} "
+              f"GB allocated")
+        info[arch] = res
+    return info, table, held
 
 
 def main() -> int:
@@ -3010,7 +3503,7 @@ def main() -> int:
             PathInputs(torch, ops, ref, wrappers))
         llm_counts = {name: fn.launches for name, fn in wrappers.items()}
         llm_s = time.perf_counter() - t0
-        del model, live
+        del model
         print(f"LLM substrate and retrieval-augmented serving ({llm_s:.1f} s;"
               f" {llm_cfg.name} at full width and depth; latencies in ms, "
               "numpy's quantile (method lower)):")
@@ -3027,6 +3520,36 @@ def main() -> int:
                                  f"{missing}")
         print(json.dumps({"llm": dict(llm_info, seconds=llm_s,
                                       serving=llm_table)}))
+
+        # the MoE, SSM and hybrid families, then deepseek behind the static
+        # front over the same engine, with their own counts
+        torch.cuda.empty_cache()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        fam_info, fam_table, fam_held = phase_families(
+            torch, S, engines["resident"], live, srv_info["writes"], q,
+            srv_info["f_ms"], PathInputs(torch, ops, ref, wrappers))
+        fam_counts = {name: fn.launches for name, fn in wrappers.items()}
+        fam_s = time.perf_counter() - t0
+        del live
+        print(f"MoE, SSM and hybrid families ({fam_s:.1f} s; "
+              + ", ".join(f"{a} {fam_info[a]['seconds']:.1f} s" for a in FAM)
+              + f"; {fam_info['allocated_gb_before']:.1f} GB allocated "
+              "before it"
+              + "; latencies in ms, numpy's quantile (method lower)):")
+        print_llm_table(fam_table)
+        print(f"kernel inputs of the families path held against the plain "
+              f"versions ({len(fam_held)}): " + "; ".join(
+                  f"{key[0]} {key[1:]}" for key in fam_held))
+        print(f"launches on the families path: {fam_counts}")
+        missing = [name for name in ("box_mindist", "coop_score_select",
+                                     "lex_select", "l2")
+                   if fam_counts[name] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the families "
+                                 f"path: {missing}")
+        print(json.dumps({"families": dict(fam_info, seconds=fam_s)}))
     finally:
         if engines is not None:
             engines["resident"].close()
@@ -3043,7 +3566,8 @@ def main() -> int:
             "engine": eng_counts[r["name"]],
             "ingest": ing_counts[r["name"]],
             "serving": srv_counts[r["name"]],
-            "llm": llm_counts[r["name"]]}
+            "llm": llm_counts[r["name"]],
+            "families": fam_counts[r["name"]]}
     shapes = shape_rows(torch, ops, ref, data_t, q_t)
     for r in shapes:
         print(f"  {r['name']} at {r['shape']}: {r['ms']:.4f} ms, bound "

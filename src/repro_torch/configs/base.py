@@ -5,8 +5,8 @@ The port's copy of ``src/repro/configs/base.py``. A dense, MoE, hybrid
 layer heterogeneity (gemma2's local/global alternation, jamba's 1:7
 attention:Mamba interleave with MoE every other layer, deepseek's dense
 first layer) is a *block pattern*: a tuple of :class:`LayerDesc` cycled
-over depth. The port serves the families whose pattern is attention with
-a dense FF (``repro_torch.models.model.model_specs`` says which).
+over depth. The port serves every family but the encoder-decoder
+(``repro_torch.models.model.model_specs`` refuses it).
 """
 
 from __future__ import annotations
@@ -123,6 +123,20 @@ class ModelConfig:
         from repro_torch.models.params import param_count
 
         return param_count(_model.model_specs(self))
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: top_k of num_experts of every
+        leaf on the 'experts' axis, truncated leaf by leaf as the
+        reference truncates)."""
+        from repro_torch.models import model as _model
+        from repro_torch.models.params import param_count, spec_leaves
+
+        specs = _model.model_specs(self)
+        if self.moe is None:
+            return param_count(specs)
+        active_frac = self.moe.top_k / self.moe.num_experts
+        return sum(int(s.size * active_frac) if "experts" in s.logical
+                   else s.size for _, s in spec_leaves(specs))
 
 
 # ---------------------------------------------------------------------------

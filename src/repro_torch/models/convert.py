@@ -80,9 +80,16 @@ def params_from_jax(tree, cfg: ModelConfig,
 
 
 def cache_from_jax(cache, cfg: ModelConfig, device=device_mod.DEFAULT):
-    """The reference's prefill cache (numpy leaves, [G, B, S, Kv, D] per
-    sub-layer) in the port's layout, which is the same."""
+    """The reference's prefill cache (numpy leaves stacked [G, ...] per
+    sub-layer: KV [G, B, S, Kv, D], mamba conv tails [G, B, W-1, C] and
+    state [G, B, H, N, P]) in the port's layout, which is the same. The
+    batch comes from any entry, the capacity from the first attention
+    entry; a stack without attention has none."""
     dev = device_mod.resolve(device)
-    first = np.asarray(cache["blocks"]["sub0"]["k"])
-    specs = decode_cache_specs(cfg, first.shape[1], first.shape[2])
+    blocks = cache["blocks"]
+    batch = np.shape(next(iter(next(iter(blocks.values())).values())))[1]
+    kv = [blocks[f"sub{i}"]["k"] for i, d in enumerate(cfg.pattern)
+          if d.kind == "attn"]
+    seq = np.shape(kv[0])[2] if kv else 0
+    specs = decode_cache_specs(cfg, batch, seq)
     return _convert(cache, specs, "cache", dev)

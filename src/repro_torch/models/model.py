@@ -1,16 +1,16 @@
-"""Model facade for the dense decoder family.
+"""Model facade for the decoder families: dense, MoE, SSM and hybrid.
 
 The port's copy of ``src/repro/models/model.py``:
 
 * ``model_specs(cfg)``   — the full parameter ParamSpec tree
 * ``Model``              — the parameters as modules (reference names)
-* ``prefill``            — full-sequence forward filling a KV cache
+* ``prefill``            — full-sequence forward filling a cache
 * ``decode_step``        — one-token step against the cache
 * ``decode_cache_specs`` — the cache's specs for a batch and a capacity
 
-A config with a MoE, SSM or encoder-decoder layer raises
-NotImplementedError: those families wait for later slices (ROADMAP
-Queue 1). The training loss waits for the training slice.
+An encoder-decoder config raises NotImplementedError: that family waits
+for a later slice (ROADMAP Queue 1). The training loss waits for the
+training slice.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from . import transformer as tfm
 from .layers import (embed_apply, embed_specs, logits_apply, rmsnorm_apply,
                      rmsnorm_specs, rounded)
 from .params import ParamSpec, Params, initialize
+from .ssm import ssm_cache_shape
 
 __all__ = ["FIRST_LAYER", "Model", "alloc_cache", "decode_cache_specs",
            "decode_step", "model_specs", "prefill"]
@@ -37,9 +38,6 @@ FIRST_LAYER = LayerDesc(kind="attn", ff="dense")
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.is_encdec:
         raise tfm.not_ported(f"{cfg.name} is an encoder-decoder")
-    if cfg.moe is not None or cfg.ssm is not None:
-        kind = "MoE" if cfg.moe is not None else "SSM"
-        raise tfm.not_ported(f"{cfg.name} has {kind} layers")
 
 
 # ---------------------------------------------------------------------------
@@ -116,8 +114,9 @@ def _logits(params, x, cfg: ModelConfig):
 def _backbone(params, tokens: torch.Tensor, cfg: ModelConfig, cache=None
               ) -> torch.Tensor:
     """tokens [B, S] -> the final-normed hidden states [B, S, d_model];
-    with ``cache`` (from :func:`alloc_cache`) every layer's keys and
-    values are written at [:, :S]."""
+    with ``cache`` (from :func:`alloc_cache`) every attention layer's keys
+    and values are written at [:, :S], every mamba layer's conv tails and
+    state."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(params, tokens, cfg)
     if cfg.dense_first_layer:
@@ -134,27 +133,31 @@ def _backbone(params, tokens: torch.Tensor, cfg: ModelConfig, cache=None
 # ---------------------------------------------------------------------------
 
 def alloc_cache(cfg: ModelConfig, batch: int, capacity: int, device):
-    """A zeroed KV cache of ``capacity`` positions for every attention
-    sub-layer (ring layers too, as the reference's generate pads every
-    cache to one capacity)."""
-    shape = (batch, capacity, cfg.num_kv_heads, cfg.head_dim)
-
-    def kv(lead=()):
+    """A zeroed cache in the compute dtype, each sub-layer's entry by its
+    kind: KV of ``capacity`` positions for attention (ring layers too, as
+    the reference's generate pads every KV cache to one capacity), conv
+    tails and state for mamba, which have no sequence axis."""
+    def entry(desc: LayerDesc, lead=()):
+        if desc.kind == "attn":
+            shape = (batch, capacity, cfg.num_kv_heads, cfg.head_dim)
+            shapes = {"k": shape, "v": shape}
+        else:
+            shapes = ssm_cache_shape(cfg.ssm, batch)
         return {n: torch.zeros(lead + shape, dtype=cfg.compute_dtype,
-                               device=device) for n in ("k", "v")}
+                               device=device) for n, shape in shapes.items()}
 
-    cache = {"blocks": {f"sub{i}": kv((cfg.num_blocks,))
-                        for i in range(cfg.period)}}
+    cache = {"blocks": {f"sub{i}": entry(d, (cfg.num_blocks,))
+                        for i, d in enumerate(cfg.pattern)}}
     if cfg.dense_first_layer:
-        cache["first_layer"] = kv()
+        cache["first_layer"] = entry(FIRST_LAYER)
     return cache
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             capacity: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
-    """tokens [B, S] -> (last-position logits [B, 1, V], cache). The cache
-    holds ``capacity`` positions (S by default, the reference's extent),
-    the prompt's keys and values at [:S]."""
+    """tokens [B, S] -> (last-position logits [B, 1, V], cache). The KV
+    entries hold ``capacity`` positions (S by default, the reference's
+    extent), the prompt's keys and values at [:S]."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     cache = alloc_cache(cfg, b, capacity or s, tokens.device)

@@ -1,13 +1,16 @@
 """Decoder-only transformer assembly: the block stack, prefill, decode.
 
-The port's copy of ``src/repro/models/transformer.py`` for attention with
-a dense FF. Depth is ``num_blocks`` repetitions of the config's layer
-*pattern* (period P); layer i's sub-layer is ``pattern[i % P]``. The
-reference stacks one block's parameters along a leading 'layers' axis and
-scans over blocks; here the stack is a ``ModuleList`` of blocks (block g
-holds slice g of every stacked leaf) and the scan a Python loop. The KV
-cache stays stacked, [G, B, S, Kv, D] per sub-layer, and is written in
-place. Rematerialization has no meaning in serving and is dropped.
+The port's copy of ``src/repro/models/transformer.py``. Depth is
+``num_blocks`` repetitions of the config's layer *pattern* (period P);
+layer i's sub-layer is ``pattern[i % P]``: an attention or a mamba mixer,
+then a dense, MoE or no FF. The reference stacks one block's parameters
+along a leading 'layers' axis and scans over blocks; here the stack is a
+``ModuleList`` of blocks (block g holds slice g of every stacked leaf)
+and the scan a Python loop. The cache stays stacked, [G, ...] per
+sub-layer (KV for attention, conv tails and state for mamba: jamba's
+8-layer block carries 7 mamba entries and 1 KV entry), and is written in
+place. Rematerialization has no meaning in serving and is dropped, and so
+is the MoE auxiliary loss, which the reference's prefill drops too.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import torch
 from repro_torch.configs.base import LayerDesc, ModelConfig
 
 from . import attention as attn_mod
+from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .layers import mlp_apply, mlp_specs, rmsnorm_apply, rmsnorm_specs
 from .params import ParamSpec, tree_map_specs
 
@@ -30,7 +35,7 @@ __all__ = ["attn_config", "block_specs", "cache_specs", "decode_blocks",
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what}, which repro_torch does not port yet (ROADMAP Queue 1, "
-        "item 7)")
+        "the encdec item)")
 
 
 def attn_config(cfg: ModelConfig) -> attn_mod.AttnConfig:
@@ -48,13 +53,6 @@ def attn_config(cfg: ModelConfig) -> attn_mod.AttnConfig:
     )
 
 
-def _check_dense(desc: LayerDesc) -> None:
-    if desc.kind != "attn":
-        raise not_ported(f"the pattern has a {desc.kind} sub-layer")
-    if desc.ff not in ("dense", "none"):
-        raise not_ported(f"the pattern has a {desc.ff} FF")
-
-
 def _check_one_card(cfg: ModelConfig) -> None:
     if cfg.sequence_parallel:
         raise ValueError(f"{cfg.name}: sequence_parallel shards the residual "
@@ -67,15 +65,21 @@ def _check_one_card(cfg: ModelConfig) -> None:
 
 def sublayer_specs(cfg: ModelConfig, desc: LayerDesc,
                    d_ff_override: int = 0) -> Dict[str, Any]:
-    _check_dense(desc)
     dt = cfg.param_dtype
-    specs: Dict[str, Any] = {"ln1": rmsnorm_specs(cfg.d_model),
-                             "attn": attn_mod.attn_specs(attn_config(cfg), dt)}
+    specs: Dict[str, Any] = {"ln1": rmsnorm_specs(cfg.d_model)}
+    if desc.kind == "attn":
+        specs["attn"] = attn_mod.attn_specs(attn_config(cfg), dt)
+    else:
+        specs["mamba"] = ssm_mod.ssm_specs(cfg.ssm, dt)
     if cfg.post_norm:
         specs["post_ln1"] = rmsnorm_specs(cfg.d_model)
-    if desc.ff == "dense":
+    if desc.ff != "none":
         specs["ln2"] = rmsnorm_specs(cfg.d_model)
-        specs["mlp"] = mlp_specs(cfg.d_model, d_ff_override or cfg.d_ff, dt)
+        if desc.ff == "dense":
+            specs["mlp"] = mlp_specs(cfg.d_model, d_ff_override or cfg.d_ff,
+                                     dt)
+        else:
+            specs["moe"] = moe_mod.moe_specs(cfg.d_model, cfg.moe, dt)
         if cfg.post_norm:
             specs["post_ln2"] = rmsnorm_specs(cfg.d_model)
     return specs
@@ -101,28 +105,46 @@ def stack_specs(tree, g: int):
 # Forward (prefill; fills the cache when one is given)
 # ---------------------------------------------------------------------------
 
+def _ff(p, h: torch.Tensor, desc: LayerDesc, cfg: ModelConfig
+        ) -> torch.Tensor:
+    if desc.ff == "dense":
+        return mlp_apply(p["mlp"], h, act=cfg.act)
+    return moe_mod.moe_apply(p["moe"], h, cfg.moe, act=cfg.act)[0]
+
+
+def _write(entry: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
+           ) -> None:
+    for name, t in new.items():
+        entry[name].copy_(t)
+
+
 def _apply_sublayer(p, x: torch.Tensor, desc: LayerDesc, cfg: ModelConfig,
                     positions: torch.Tensor,
                     entry: Optional[Dict[str, torch.Tensor]] = None
                     ) -> torch.Tensor:
-    """One sub-layer over the whole sequence; with ``entry`` ({k, v} of
-    [B, cap, Kv, D]) its keys and values are written at [:, :S]."""
-    _check_dense(desc)
+    """One sub-layer over the whole sequence. With ``entry`` (its slot of
+    the cache) an attention layer writes its keys and values at [:, :S]
+    of {k, v} [B, cap, Kv, D], a mamba layer its conv tails and state."""
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
-    window = cfg.local_window if desc.attn_type == "local" else None
-    out, (k, v) = attn_mod.self_attention(
-        p["attn"], h, attn_config(cfg), causal=True, window=window,
-        positions=positions)
-    if entry is not None:
-        s = k.shape[1]
-        entry["k"][:, :s] = k.to(entry["k"].dtype)
-        entry["v"][:, :s] = v.to(entry["v"].dtype)
+    if desc.kind == "attn":
+        window = cfg.local_window if desc.attn_type == "local" else None
+        out, (k, v) = attn_mod.self_attention(
+            p["attn"], h, attn_config(cfg), causal=True, window=window,
+            positions=positions)
+        if entry is not None:
+            s = k.shape[1]
+            entry["k"][:, :s] = k.to(entry["k"].dtype)
+            entry["v"][:, :s] = v.to(entry["v"].dtype)
+    else:
+        out, new = ssm_mod.ssm_apply(p["mamba"], h, cfg.ssm,
+                                     return_cache=True)
+        if entry is not None:
+            _write(entry, new)
     if cfg.post_norm:
         out = rmsnorm_apply(p["post_ln1"], out, cfg.norm_eps)
     x = x + out
     if desc.ff != "none":
-        h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-        out = mlp_apply(p["mlp"], h, act=cfg.act)
+        out = _ff(p, rmsnorm_apply(p["ln2"], x, cfg.norm_eps), desc, cfg)
         if cfg.post_norm:
             out = rmsnorm_apply(p["post_ln2"], out, cfg.norm_eps)
         x = x + out
@@ -136,7 +158,7 @@ def _entry(cache, key: str, g: int):
 def run_blocks(blocks, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor, cache=None) -> torch.Tensor:
     """Every block in order. ``cache`` (the stacked cache's 'blocks' part)
-    receives each sub-layer's keys and values."""
+    receives each sub-layer's entry."""
     _check_one_card(cfg)
     for g, bp in enumerate(blocks):
         for i, desc in enumerate(cfg.pattern):
@@ -153,19 +175,21 @@ def run_blocks(blocks, x: torch.Tensor, cfg: ModelConfig,
 def _sublayer_decode(p, x: torch.Tensor, desc: LayerDesc, cfg: ModelConfig,
                      entry: Dict[str, torch.Tensor], pos: int
                      ) -> torch.Tensor:
-    _check_dense(desc)
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
-    window = cfg.local_window if desc.attn_type == "local" else None
-    ring = cfg.local_ring_cache and desc.attn_type == "local"
-    out, _, _ = attn_mod.decode_attention(
-        p["attn"], h, entry["k"], entry["v"], pos, attn_config(cfg),
-        window=window, ring=ring)
+    if desc.kind == "attn":
+        window = cfg.local_window if desc.attn_type == "local" else None
+        ring = cfg.local_ring_cache and desc.attn_type == "local"
+        out, _, _ = attn_mod.decode_attention(
+            p["attn"], h, entry["k"], entry["v"], pos, attn_config(cfg),
+            window=window, ring=ring)
+    else:
+        out, new = ssm_mod.ssm_decode_step(p["mamba"], h, entry, cfg.ssm)
+        _write(entry, new)
     if cfg.post_norm:
         out = rmsnorm_apply(p["post_ln1"], out, cfg.norm_eps)
     x = x + out
     if desc.ff != "none":
-        h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-        out = mlp_apply(p["mlp"], h, act=cfg.act)
+        out = _ff(p, rmsnorm_apply(p["ln2"], x, cfg.norm_eps), desc, cfg)
         if cfg.post_norm:
             out = rmsnorm_apply(p["post_ln2"], out, cfg.norm_eps)
         x = x + out
@@ -190,14 +214,21 @@ def decode_blocks(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
 
 def sublayer_cache_spec(cfg: ModelConfig, desc: LayerDesc, batch: int,
                         seq: int) -> Dict[str, Any]:
-    _check_dense(desc)
-    cap = seq
-    if cfg.local_ring_cache and desc.attn_type == "local":
-        cap = min(seq, cfg.local_window)
-    kvshape = (batch, cap, cfg.num_kv_heads, cfg.head_dim)
-    logical = ("batch", "seq", "kv_heads", "head_dim")
-    return {n: ParamSpec(kvshape, logical, dtype=cfg.compute_dtype,
-                         init="zeros") for n in ("k", "v")}
+    if desc.kind == "attn":
+        cap = seq
+        if cfg.local_ring_cache and desc.attn_type == "local":
+            cap = min(seq, cfg.local_window)
+        kvshape = (batch, cap, cfg.num_kv_heads, cfg.head_dim)
+        logical = ("batch", "seq", "kv_heads", "head_dim")
+        return {n: ParamSpec(kvshape, logical, dtype=cfg.compute_dtype,
+                             init="zeros") for n in ("k", "v")}
+    logical = {"conv_x": ("batch", "conv", "ssm_inner"),
+               "conv_B": ("batch", "conv", None),
+               "conv_C": ("batch", "conv", None),
+               "h": ("batch", "ssm_inner", "ssm_state", None)}
+    return {n: ParamSpec(shape, logical[n], dtype=cfg.compute_dtype,
+                         init="zeros")
+            for n, shape in ssm_mod.ssm_cache_shape(cfg.ssm, batch).items()}
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq: int):

@@ -620,3 +620,104 @@ def test_generate_on_the_card(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     assert torch.equal(got.cpu(), want)
+
+
+def _no_tf32(fn):
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("b,s", [(2, 48), (4, 1)])
+def test_moe_apply_on_the_card_matches_the_cpu(cuda, b, s):
+    """f32 (TF32 off), prefill and a decode step's t = B: the routed ids
+    and the dispatch rows equal the CPU's, the output and the aux values
+    within atol = rtol = 1e-4."""
+    from repro_torch.models import moe
+    from repro_torch.models import params as P
+
+    cfg = moe.MoEConfig(num_experts=8, top_k=2, d_ff_expert=48,
+                        num_shared=1, capacity_factor=1.0)
+    tree = P.initialize(moe.moe_specs(32, cfg, torch.float32), 0, "cpu")
+    x = torch.randn(b, s, 32, generator=torch.Generator().manual_seed(3))
+
+    def run(dev):
+        p = _tree_to(tree, dev)
+        xd = x.to(dev)
+        _, idx, _ = moe._route(torch.matmul(xd.reshape(b * s, 32),
+                                            p["router"]), cfg)
+        out, aux = moe.moe_apply(p, xd, cfg)
+        dest = moe.dispatch(idx, 8, moe.capacity(b * s, cfg))[2]
+        return (idx.cpu(), dest.cpu(), out.cpu(),
+                {k: float(v) for k, v in aux.items()})
+
+    gi, gd, go, ga = _no_tf32(lambda: run(cuda))
+    ci, cd, co, ca = run("cpu")
+    assert torch.equal(gi, ci) and torch.equal(gd, cd)
+    torch.testing.assert_close(go, co, atol=1e-4, rtol=1e-4)
+    for k in ca:
+        assert abs(ga[k] - ca[k]) <= 1e-4 + 1e-4 * abs(ca[k])
+
+
+def test_ssm_on_the_card_matches_the_cpu(cuda):
+    """ssm_apply with its cache at a length the chunk does not divide, then
+    two decode steps, two groups, f32 (TF32 off)."""
+    from repro_torch.models import params as P
+    from repro_torch.models import ssm
+
+    cfg = ssm.SSMConfig(d_model=32, d_state=8, head_dim=8, n_groups=2,
+                        chunk=16)
+    tree = P.initialize(ssm.ssm_specs(cfg, torch.float32), 0, "cpu")
+    tree["A_log"] = torch.linspace(-1, 1, cfg.n_heads)
+    u = torch.randn(2, 26, 32, generator=torch.Generator().manual_seed(4))
+
+    def run(dev):
+        p = _tree_to(tree, dev)
+        out, cache = ssm.ssm_apply(p, u[:, :24].to(dev), cfg,
+                                   return_cache=True)
+        outs = [out]
+        for t in (24, 25):
+            o, cache = ssm.ssm_decode_step(p, u[:, t:t + 1].to(dev), cache,
+                                           cfg)
+            outs.append(o)
+        return [o.cpu() for o in outs] + [cache[k].cpu() for k in
+                                          sorted(cache)]
+
+    for got, want in zip(_no_tf32(lambda: run(cuda)), run("cpu")):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_hybrid_model_on_the_card_matches_the_cpu(cuda):
+    """jamba's smoke config (mamba, attention, dense and MoE sub-layers) in
+    f32 (TF32 off): prefill logits, every cache entry and two decode steps
+    on the card equal the CPU's within atol = rtol = 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models import params as P
+
+    cfg = dataclasses.replace(get_smoke_config("jamba-v0.1-52b"),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    tree = P.initialize(M.model_specs(cfg), 0, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(1))
+
+    def run(dev):
+        model = M.Model(cfg, _tree_to(tree, dev))
+        lg, cache = M.prefill(model, {"tokens": toks.to(dev)}, cfg,
+                              capacity=26)
+        outs = [lg]
+        for pos in (24, 25):
+            lg, cache = M.decode_step(model, toks[:, pos - 24:pos - 23].to(
+                dev), cache, pos, cfg)
+            outs.append(lg)
+        outs += [t for e in cache["blocks"].values() for t in e.values()]
+        return [t.cpu() for t in outs]
+
+    for got, want in zip(_no_tf32(lambda: run(cuda)), run("cpu")):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
