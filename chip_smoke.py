@@ -160,7 +160,46 @@ Phases, each of which fails the run by raising:
      every request answered once, exact answers brute force's. Launch
      counts are zeroed before and read after; K1, K4, lex_select and K3
      must have run;
-  13. kernels at the main path's shapes: each kernel against its plain
+  13. the encoder-decoder family: seamless-m4t-medium at the full width
+     and depth of configs/seamless_m4t_medium.py (12 + 12 layers, d_model
+     1024, vocab 256206, 1024 frames), bf16 weights drawn on the card
+     from seed 22; its parameter count and bytes the reference's
+     (ENC_PARAMS). One encoder and one decoder layer at full width in
+     f32 on the card (TF32 off) against the CPU: encode, prefill of
+     ENC_BLOCK prompts x tokens over every frame with its cross cache,
+     one decode step; and encode + decode_train over ENC_CUT layers
+     each, at atol = rtol = ENC_F32_TOL; bf16 on the card against the
+     f32 CPU reported and held at LLM_BF16_VS_F32. Prefill 8 x 512 and
+     1 x 8192 decoder tokens over 1024 frames (the self attention
+     blockwise past 2048, the cross attention dense) and decode at batch
+     1, 8 and 32 with a 2048-token cache, timed beside their bounds and
+     one profiled call's busy time. generate(frames=) of ENC_GEN_NEW
+     tokens after an ENC_GEN_PROMPT-token prompt against one full
+     forward over both: logits at LLM_BF16_PATHS and the share of steps
+     whose argmax agrees. No kernel of the port lies on this path
+     (launch counts zeroed before, read after: all 0);
+  14. training, after the engines are closed: (a) the flow of
+     examples/train_embedder.py at its own settings (minitron-8b's smoke
+     config, 300 steps, batch 8, seq 64, a checkpoint every 50 steps, a
+     fault injected at step 150) through launch/train.fit on the card,
+     with torch.use_deterministic_algorithms on for it alone: one
+     restart, the mean loss of the last 5 steps at least 0.1 below the
+     first 5, every kept checkpoint passing its sha256 check, and the
+     losses and the final parameters equal to an uninterrupted run's bit
+     for bit; (b) one train step of gemma2-2b's first block (local, then
+     global) with the embedding and the softcapped logits at full width
+     in f32 on the card against the CPU at 1 x 64 tokens: the loss, the
+     global norm and every gradient leaf at TRAIN_GRAD_TOL relative to
+     the leaf's largest magnitude, and optimizer.apply given the same
+     gradients at TRAIN_APPLY_TOL; (c) AdamW steps at full width
+     (TRAIN_FULL: gemma2-2b 1 x 4096 at full depth, seamless-m4t-medium
+     2 x 4096 over 1024 frames, mamba2-370m 2 x 4096, deepseek-moe-16b 4
+     of 28 layers at 1 x 4096), each timed by CUDA events beside its
+     bound (3 x the forward's operations; recomputation not counted),
+     one profiled step's busy time and the peak memory allocated, every
+     loss and gradient norm finite. No kernel of the port lies on this
+     path either (all 0);
+  15. kernels at the main path's shapes: each kernel against its plain
      version, timed with CUDA events beside the plain version, one
      PyTorch library call where one computes the same function (for K3
      the cuBLAS expanded form; cdist beside it as ``cdist_ms``), and the
@@ -172,16 +211,22 @@ Phases, each of which fails the run by raising:
      D = 64 are timed too.
 
 Prints a ``{"serving": ...}`` line, an ``{"llm": ...}`` line, a
-``{"families": ...}`` line, a ``{"kernels": [...]}`` line, then
+``{"families": ...}`` line, an ``{"encdec": ...}`` line, a ``{"train":
+...}`` line, a ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": ...}`` as its last line. Exits non-zero without a result when no CUDA device
 is present or the package is missing.
 """
 
 from __future__ import annotations
 
+import os
+
+# cuBLAS needs a fixed workspace for the bitwise replay of the training
+# phase (torch.use_deterministic_algorithms); set before torch loads
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 import argparse
 import json
-import os
 import shutil
 import subprocess
 import sys
@@ -2699,7 +2744,7 @@ def phase_llm_model(torch):
         fed.append(tok)
     del cache
     full = torch.cat([long] + fed[:-1], dim=1)  # 8192 + 32: the dense path
-    x = M._backbone(model, full, cfg)
+    x = M._backbone(model, full, cfg)[0]
     lg_full = M._logits(model, x[:, LLM_LONG:], cfg)
     del x
     lg_dec = torch.cat(steps, dim=1)
@@ -2889,7 +2934,7 @@ def phase_llm_serving(torch, S, model, cfg, resident, live, writes, q, f_ms,
         x = torch.as_tensor(walks[i:i + EXAMPLE_BATCH], device=dev)
         toks = ((x + 3) / 6 * (cfg.vocab_size - 1)).clamp(
             0, cfg.vocab_size - 1).to(torch.int32)
-        embs.append(M._backbone(model, toks, cfg).mean(dim=1).float())
+        embs.append(M._backbone(model, toks, cfg)[0].mean(dim=1).float())
     emb = torch.cat(embs).cpu().numpy()
     embed_s = time.perf_counter() - t0
     emb = ((emb - emb.mean(0)) / (emb.std(0) + 1e-9)).astype(np.float32)
@@ -3092,7 +3137,7 @@ def fam_decode_check(torch, M, moe, ssm, model, cfg, g, tol) -> dict:
         fcfg = dataclasses.replace(ccfg, attn_chunk_q=FAM_FULL_CHUNK)
         info["full_chunk"] = FAM_FULL_CHUNK
     torch.cuda.empty_cache()  # jamba's full forward needs unfragmented room
-    x = M._backbone(model, full, fcfg)
+    x = M._backbone(model, full, fcfg)[0]
     lg_full = M._logits(model, x[:, long_n:], fcfg)
     del x
     lg_dec = torch.cat(dec, dim=1)
@@ -3246,6 +3291,607 @@ def phase_families(torch, S, resident, live, writes, q, f_ms, path):
               f"GB allocated")
         info[arch] = res
     return info, table, held
+
+
+# ---------------------------------------------------------------------------
+# 13. the encoder-decoder family
+# ---------------------------------------------------------------------------
+
+ENC_ARCH = "seamless-m4t-medium"
+# the reference's param_count and param_bytes of that config (bf16 weights,
+# f32 norms; final_norm counted, though the decoder ends in dec_norm)
+ENC_PARAMS, ENC_BYTES = 716_452_864, 1_433_034_752
+ENC_SEED = 22
+# b: f32 (TF32 off) on the card against the CPU at ENC_F32_TOL: one encoder
+# and one decoder layer over ENC_BLOCK prompts x decoder tokens and every
+# frame, and encode + decode_train over ENC_CUT layers each
+ENC_F32_TOL = 1e-4
+ENC_BLOCK = (2, 64)
+ENC_CUT = 2
+# c: timings (decode: LLM_DECODE_BATCHES with an LLM_DECODE_CACHE cache)
+ENC_PREFILL_SHAPES = ((8, 512), (1, 8192))
+# d: generate(frames=) against one full forward, in bf16 at ENC_BF16_PATHS
+# (1.6 x the largest error an H100 showed, 2.5: seamless has no final
+# softcap to bound its logits, as gemma's are bound at 30) and on an f32
+# copy of the same draws at ENC_F32_PATHS, the families' f32 tolerance
+ENC_GEN_PROMPT, ENC_GEN_NEW = 512, 32
+ENC_BF16_PATHS = dict(atol=4.0, rtol=0.02)
+ENC_F32_PATHS = FAM_F32_PATHS
+
+
+def enc_groups(cfg) -> dict:
+    """Parameters and bytes of the encoder side (frontend, layers, norm),
+    of the decoder layers (and of their cross k/v projections, which run
+    over the frames), and of the rest (embedding, norms)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import params as P
+
+    out = dict(enc=0, enc_bytes=0, dec=0, dec_bytes=0, cross_kv=0,
+               other=0, other_bytes=0)
+    for path, s in P.spec_leaves(M.model_specs(cfg)):
+        n, nb = s.size, s.size * s.dtype.itemsize
+        if path.startswith(("encdec.encoder.", "encdec.frontend_proj",
+                            "encdec.enc_norm")):
+            out["enc"] += n
+            out["enc_bytes"] += nb
+        elif path.startswith("encdec.decoder."):
+            out["dec"] += n
+            out["dec_bytes"] += nb
+            if ".cross_attn.wk" in path or ".cross_attn.wv" in path:
+                out["cross_kv"] += n
+        else:
+            out["other"] += n
+            out["other_bytes"] += nb
+    return out
+
+
+def enc_forward_ops(cfg, g: dict, b: int, s: int, f: int,
+                    logit_rows: int) -> int:
+    """Operations of encode over f frames and the decoder over s tokens:
+    every encoder parameter once per frame, the cross k/v projections
+    once per frame and the other decoder parameters once per token (2
+    each), the attention as the paths score it (the encoder's F x F, the
+    decoder's S x S causal path scored whole, the cross S x F), and the
+    logits of ``logit_rows`` positions per prompt."""
+    hd = cfg.num_heads * cfg.head_dim
+    ops = 2 * g["enc"] * b * f + 4 * b * hd * f * f * cfg.encoder_layers
+    ops += 2 * g["cross_kv"] * b * f + 2 * (g["dec"] - g["cross_kv"]) * b * s
+    ops += 4 * b * hd * s * (s + f) * cfg.num_layers
+    return ops + 2 * b * logit_rows * cfg.d_model * cfg.vocab_size
+
+
+def enc_cache_bytes(cfg, b: int, s: int, f: int) -> int:
+    return (2 * cfg.num_layers * b * (s + f) * cfg.num_kv_heads
+            * cfg.head_dim * cfg.compute_dtype.itemsize)
+
+
+def enc_prefill_bound(cfg, counts: dict, g: dict, b: int, s: int,
+                      f: int) -> tuple:
+    """Every parameter and the frames read once, the cache written once,
+    against enc_forward_ops with the last position's logits."""
+    n_bytes = (counts["bytes"] + b * f * cfg.d_model * 4
+               + enc_cache_bytes(cfg, b, s, f))
+    return llm_bound(n_bytes, enc_forward_ops(cfg, g, b, s, f, 1), 0)
+
+
+def enc_decode_bound(cfg, g: dict, b: int, cap: int, f: int) -> tuple:
+    """A decode step reads the decoder's parameters, the embedding (the
+    tied logits), the self cache at capacity and the cross cache, and
+    computes 2 operations per decoder parameter outside the cross k/v
+    projections, the logits, and the attention over cap + f keys."""
+    n_bytes = g["dec_bytes"] + g["other_bytes"] + enc_cache_bytes(
+        cfg, b, cap, f)
+    ops = (2 * (g["dec"] - g["cross_kv"]) * b
+           + 2 * b * cfg.d_model * cfg.vocab_size
+           + 4 * b * cfg.num_heads * cfg.head_dim * (cap + f)
+           * cfg.num_layers)
+    return llm_bound(n_bytes, ops, 0)
+
+
+def enc_card_vs_cpu(torch, M, E, P, cfg, g) -> dict:
+    """Part b: one encoder and one decoder layer at full width, and encode
+    + decode_train over ENC_CUT layers each, f32 on the card (TF32 off)
+    against the CPU on one set of weights; then bf16 on the card against
+    the f32 CPU. Returns the max abs errors."""
+    import dataclasses
+
+    f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32)
+    b, n = ENC_BLOCK
+    toks = torch.randint(0, cfg.vocab_size, (b, n), generator=g)
+    frames = torch.randn(b, cfg.encoder_frames, cfg.d_model, generator=g)
+    nxt = torch.randint(0, cfg.vocab_size, (b, 1), generator=g)
+    errs = {}
+
+    def layer_run(model, c, dev):
+        enc = E.encode(model["encdec"], frames.to(dev), c)
+        lg, cache = M.prefill(model, {"tokens": toks.to(dev),
+                                      "frames": frames.to(dev)}, c,
+                              capacity=n + 1)
+        dl, _ = M.decode_step(model, nxt.to(dev), cache, n, c)
+        return {"encode": enc, "prefill": lg, "ck": cache["ck"],
+                "k": cache["k"], "decode": dl}
+
+    cfg1 = dataclasses.replace(cfg, num_layers=1, encoder_layers=1, **f32)
+    tree = P.initialize(M.model_specs(cfg1), ENC_SEED, "cuda")
+    want = {k: v.float().cpu() for k, v in layer_run(
+        M.Model(cfg1, llm_map(lambda t: t.cpu(), tree)), cfg1,
+        "cpu").items()}
+    got = layer_run(M.Model(cfg1, tree), cfg1, "cuda")
+    for k, v in want.items():
+        errs[f"f32 {k}"] = close(torch, got[k].cpu(), v, f"encdec b f32 {k}",
+                                 ENC_F32_TOL, ENC_F32_TOL)
+    cfg16 = dataclasses.replace(cfg1, param_dtype=torch.bfloat16,
+                                compute_dtype=torch.bfloat16)
+    tree16 = llm_map(lambda t, s: t.to(s.dtype), tree, M.model_specs(cfg16))
+    del tree, got
+    got = layer_run(M.Model(cfg16, tree16), cfg16, "cuda")
+    for k in ("prefill", "decode"):
+        errs[f"bf16 {k}"] = close(torch, got[k].cpu(), want[k],
+                                  f"encdec b bf16 {k}", **LLM_BF16_VS_F32)
+    del tree16, got
+
+    cfg2 = dataclasses.replace(cfg, num_layers=ENC_CUT,
+                               encoder_layers=ENC_CUT, **f32)
+    tree = P.initialize(M.model_specs(cfg2), ENC_SEED + 1, "cuda")
+    x = torch.randn(b, n, cfg.d_model, generator=g)
+
+    def cut_run(tree, dev):
+        params = M.Model(cfg2, tree)["encdec"]
+        enc = E.encode(params, frames.to(dev), cfg2)
+        return enc, E.decode_train(params, enc, x.to(dev), cfg2)
+
+    enc_c, dec_c = cut_run(llm_map(lambda t: t.cpu(), tree), "cpu")
+    enc_g, dec_g = cut_run(tree, "cuda")
+    errs["f32 cut encode"] = close(torch, enc_g.cpu(), enc_c,
+                                   "encdec b cut encode", ENC_F32_TOL,
+                                   ENC_F32_TOL)
+    errs["f32 cut decode_train"] = close(torch, dec_g.cpu(), dec_c,
+                                         "encdec b cut decode_train",
+                                         ENC_F32_TOL, ENC_F32_TOL)
+    torch.cuda.empty_cache()
+    return errs
+
+
+def enc_timings(torch, M, model, cfg, counts: dict, groups: dict, g) -> list:
+    """Part c: prefill over every frame and decode steps, by CUDA events,
+    beside their bounds and one profiled call's busy time."""
+    f = cfg.encoder_frames
+    rows = []
+    for b, s in ENC_PREFILL_SHAPES:
+        t = torch.randint(0, cfg.vocab_size, (b, s), generator=g).cuda()
+        fr = torch.randn(b, f, cfg.d_model, generator=g).cuda()
+
+        def pre(t=t, fr=fr):
+            return M.prefill(model, {"tokens": t, "frames": fr}, cfg)
+
+        ms = llm_events_ms(torch, pre, 3)
+        busy, kernels = llm_device_busy(torch, pre)
+        bound, by, ops = enc_prefill_bound(cfg, counts, groups, b, s, f)
+        rows.append(dict(what="prefill", batch=b, tokens=s, frames=f, ms=ms,
+                         tokens_per_s=b * s / ms * 1e3, bound_ms=bound,
+                         bound_by=by, flops=ops, device_busy_ms=busy,
+                         device_ops=kernels))
+    for b in LLM_DECODE_BATCHES:
+        cache = M.alloc_cache(cfg, b, LLM_DECODE_CACHE, "cuda", frames=f)
+        t = torch.randint(0, cfg.vocab_size, (b, 1), generator=g).cuda()
+
+        def step(t=t, cache=cache):
+            return M.decode_step(model, t, cache, LLM_DECODE_CACHE - 1, cfg)
+
+        ms = llm_events_ms(torch, step, 10)
+        busy, kernels = llm_device_busy(torch, step)
+        del cache, step
+        bound, by, ops = enc_decode_bound(cfg, groups, b, LLM_DECODE_CACHE, f)
+        rows.append(dict(what="decode", batch=b, tokens=LLM_DECODE_CACHE,
+                         frames=f, ms=ms, tokens_per_s=b / ms * 1e3,
+                         bound_ms=bound, bound_by=by, flops=ops,
+                         device_busy_ms=busy, device_ops=kernels))
+    return rows
+
+
+def enc_generate_check(torch, M, E, model, cfg, prompt, fr, tol) -> dict:
+    """Part d: generate(frames=) of ENC_GEN_NEW tokens after ``prompt``,
+    the same steps by prefill and decode_step (their logits), and one
+    full forward over the prompt and the generated tokens: the tokens
+    equal the loop's argmax, the logits within ``tol`` of the full
+    forward's, and the share of steps whose argmax agrees with it."""
+    from repro_torch.serve.serve_step import generate
+
+    n, new = ENC_GEN_PROMPT, ENC_GEN_NEW
+    toks, aux = generate(model, cfg, prompt, new, frames=fr)
+    if aux["cache"]["ck"].shape[2] != cfg.encoder_frames or aux["cache"][
+            "k"].shape[2] != n + new:
+        raise AssertionError("encdec d: generate's cache has the wrong "
+                             "extents")
+    lg, cache = M.prefill(model, {"tokens": prompt, "frames": fr}, cfg,
+                          capacity=n + new)
+    steps = [lg]
+    for i in range(new - 1):
+        lg, cache = M.decode_step(model, toks[:, i:i + 1], cache, n + i, cfg)
+        steps.append(lg)
+    loop = torch.cat(steps, dim=1)
+    if not torch.equal(loop.argmax(-1).to(torch.int32), toks):
+        raise AssertionError("encdec d: generate's tokens are not the "
+                             "greedy tokens of its own steps")
+    enc = E.encode(model["encdec"], fr, cfg)
+    full_toks = torch.cat([prompt, toks[:, :-1]], dim=1)
+    x = E.decode_train(model["encdec"], enc, M._embed(model, full_toks, cfg),
+                       cfg)
+    full = M._logits(model, x[:, n - 1:], cfg)
+    for what, t in (("decode", loop), ("full", full)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"encdec d: non-finite {what} logits")
+    err = close(torch, loop, full, f"encdec d {cfg.compute_dtype} decode vs "
+                "full forward", **tol)
+    agree = float((loop.argmax(-1) == full.argmax(-1)).float().mean())
+    return dict(max_abs_err=err, argmax_agree=agree, prompt=n, new=new)
+
+
+def phase_encdec(torch):
+    """seamless-m4t-medium at full width and depth: parts a-d."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec as E
+    from repro_torch.models import model as M
+    from repro_torch.models import params as P
+
+    info = {}
+    cfg = get_config(ENC_ARCH)
+    g = torch.Generator().manual_seed(ENC_SEED)
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- b first: the f32 layers must not sit beside the model
+    t0 = time.perf_counter()
+    info["card_vs_cpu"] = enc_card_vs_cpu(torch, M, E, P, cfg, g)
+    print(f"  encdec b: one encoder and one decoder layer at full width "
+          f"({ENC_BLOCK[0]} prompts of {ENC_BLOCK[1]} tokens over "
+          f"{cfg.encoder_frames} frames, prefill with its cross cache and "
+          f"one decode step) and encode + decode_train over {ENC_CUT} + "
+          f"{ENC_CUT} layers: the card (f32, TF32 off) equals the CPU within"
+          f" atol = rtol = {ENC_F32_TOL}; bf16 on the card the f32 CPU "
+          f"within atol {LLM_BF16_VS_F32['atol']}, rtol "
+          f"{LLM_BF16_VS_F32['rtol']}; max abs errors " + ", ".join(
+              f"{k} {v:.3g}" for k, v in info["card_vs_cpu"].items())
+          + f" ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- a. the model at full width and depth, bf16, on the card
+    t0 = time.perf_counter()
+    model = M.Model.init(cfg, ENC_SEED, "cuda")
+    torch.cuda.synchronize()
+    counts = llm_param_counts(cfg)
+    groups = enc_groups(cfg)
+    held = sum(p.numel() for p in model.parameters())
+    held_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if (counts["params"], counts["bytes"], held, held_bytes) != (
+            ENC_PARAMS, ENC_BYTES) * 2:
+        raise AssertionError(
+            f"{cfg.name}: {counts['params']} parameters in {counts['bytes']}"
+            f" bytes ({held} in {held_bytes} on the card), the reference "
+            f"counts {ENC_PARAMS} in {ENC_BYTES}")
+    info.update(params=counts["params"], param_bytes=counts["bytes"],
+                init_s=time.perf_counter() - t0,
+                mem_gb=torch.cuda.memory_allocated() / 1e9)
+    print(f"  encdec a: {cfg.name} at full width and depth ("
+          f"{cfg.encoder_layers} + {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.encoder_frames} "
+          f"frames): {counts['params']} parameters, {counts['bytes']} bytes,"
+          f" the reference's count; initialized on the card in "
+          f"{info['init_s']:.2f} s")
+
+    # ---- c. timings
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    info["card"] = card
+    info["timings"] = enc_timings(torch, M, model, cfg, counts, groups, g)
+    print_llm_timings("encdec c", card, info["timings"])
+
+    # ---- d. generate(frames=) against the full forward, bf16 and f32
+    prompt = torch.randint(0, cfg.vocab_size, (1, ENC_GEN_PROMPT),
+                           generator=g).cuda()
+    fr = torch.randn(1, cfg.encoder_frames, cfg.d_model, generator=g).cuda()
+    info["generate"] = enc_generate_check(torch, M, E, model, cfg, prompt,
+                                          fr, ENC_BF16_PATHS)
+    del model
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                compute_dtype=torch.float32)
+    m32 = M.Model.init(cfg32, ENC_SEED, "cuda")  # the draws before the cast
+    info["generate_f32"] = enc_generate_check(torch, M, E, m32, cfg32,
+                                              prompt, fr, ENC_F32_PATHS)
+    del m32
+    torch.cuda.empty_cache()
+    for what, d, tol in (("bf16", info["generate"], ENC_BF16_PATHS),
+                         ("f32", info["generate_f32"], ENC_F32_PATHS)):
+        print(f"  encdec d: {what} generate(frames=) of {d['new']} tokens "
+              f"after a {d['prompt']}-token prompt against one full forward "
+              f"over both: max abs error {d['max_abs_err']:.3g} (held at "
+              f"atol {tol['atol']}, rtol {tol['rtol']}), argmax agreeing on "
+              f"{d['argmax_agree']:.3f} of the steps")
+    info["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return info
+
+
+# ---------------------------------------------------------------------------
+# 14. training
+# ---------------------------------------------------------------------------
+
+TRAIN_SEED = 22
+# a: examples/train_embedder.py at its own settings (ckpt_every is its
+# max(10, steps // 6)), a fault at steps // 2 as its --inject-fault
+TRAIN_EX_ARCH = "minitron-8b"
+TRAIN_EX_STEPS, TRAIN_EX_BATCH, TRAIN_EX_SEQ = 300, 8, 64
+TRAIN_EX_CKPT, TRAIN_EX_FAULT = 50, 150
+# b: gemma2-2b's first block with the embedding and the softcapped logits
+# at full width, f32 (TF32 off), the card against the CPU: the loss, the
+# global norm and each gradient leaf at TRAIN_GRAD_TOL times the leaf's
+# largest magnitude (and rtol), optimizer.apply given the same gradients
+# at TRAIN_APPLY_TOL
+TRAIN_CMP_ARCH, TRAIN_CMP_TOKENS = "gemma2-2b", (1, 64)
+TRAIN_GRAD_TOL, TRAIN_APPLY_TOL = 1e-4, 1e-6
+# c: (config, layers or None for its full depth, batch, tokens): the
+# sequence is the train_4k shape's, the batch cut from its 256
+TRAIN_FULL = (("gemma2-2b", None, 1, 4096),
+              ("seamless-m4t-medium", None, 2, 4096),
+              ("mamba2-370m", None, 2, 4096),
+              ("deepseek-moe-16b", 4, 1, 4096))
+TRAIN_TIMED_STEPS = 2
+
+
+def train_example(torch, root: Path) -> dict:
+    """Part a: the example's flow through fit, with a fault and without,
+    deterministic; the checks of the reference's test and the example."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import fit
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.fault import FaultInjector
+
+    cfg = get_smoke_config(TRAIN_EX_ARCH)
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(steps=TRAIN_EX_STEPS, batch=TRAIN_EX_BATCH, seq=TRAIN_EX_SEQ,
+              ckpt_every=TRAIN_EX_CKPT, log_every=100, device="cuda")
+    saved = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        faulty = fit(cfg, ckpt_dir=str(root / "fault"),
+                     injector=FaultInjector(fail_at=[TRAIN_EX_FAULT]), **kw)
+        faulty_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        clean = fit(cfg, ckpt_dir=str(root / "clean"), **kw)
+        clean_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(saved)
+    losses = faulty["losses"]
+    if faulty["restarts"] != 1 or clean["restarts"] != 0:
+        raise AssertionError(f"train a: {faulty['restarts']} restarts with "
+                             f"the fault, {clean['restarts']} without")
+    if len(losses) != TRAIN_EX_STEPS or losses != clean["losses"]:
+        bad = [i for i, (a, b) in enumerate(zip(losses, clean["losses"]))
+               if a != b]
+        raise AssertionError(f"train a: the replayed losses differ from an "
+                             f"uninterrupted run's at steps {bad[:10]}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first - 0.1:
+        raise AssertionError(f"train a: mean loss of the last 5 steps "
+                             f"{last:.4f}, of the first 5 {first:.4f}")
+    same = all(torch.equal(a, b) for a, b in zip(
+        faulty["params"].reference_leaves().values(),
+        clean["params"].reference_leaves().values()))
+    if not same:
+        raise AssertionError("train a: the final parameters differ from an "
+                             "uninterrupted run's")
+    ck = Checkpointer(str(root / "fault"))
+    kept = ck.all_steps()
+    for step in kept:  # restore validates every file's sha256
+        tmpl = M.Model.init(cfg, 1, "cuda")
+        ck.restore({"params": tmpl,
+                    "opt_state": O.init(O.OptConfig(), tmpl)}, step)
+    if kept[-1] != TRAIN_EX_STEPS or not all(torch.equal(a, b) for a, b in zip(
+            tmpl.reference_leaves().values(),
+            faulty["params"].reference_leaves().values())):
+        raise AssertionError("train a: the last checkpoint is not the final "
+                             "state")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(config=f"{cfg.name} smoke", params=cfg.param_count(),
+                steps=TRAIN_EX_STEPS, batch=TRAIN_EX_BATCH,
+                seq=TRAIN_EX_SEQ, fault_at=TRAIN_EX_FAULT,
+                restarts=faulty["restarts"],
+                stragglers=faulty["stragglers"], loss_first5=first,
+                loss_last5=last, replay_bitwise=True,
+                checkpoints_verified=kept, seconds_with_fault=faulty_s,
+                seconds_clean=clean_s,
+                ms_per_step_clean=clean_s / TRAIN_EX_STEPS * 1e3)
+
+
+def train_card_vs_cpu(torch) -> dict:
+    """Part b: one train step's loss and gradients, f32 on the card (TF32
+    off) against the CPU, and optimizer.apply on both given the CPU's
+    gradients."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batch_at_step
+    from repro_torch.models import model as M
+    from repro_torch.models import params as P
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_step import loss_and_grads
+
+    cfg = dataclasses.replace(get_config(TRAIN_CMP_ARCH), num_layers=2,
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    b, s = TRAIN_CMP_TOKENS
+    tree = P.initialize(M.model_specs(cfg), TRAIN_SEED, "cuda")
+    card = M.Model(cfg, tree)
+    cpu = M.Model(cfg, llm_map(lambda t: t.cpu(), tree))
+    batch = batch_at_step(TRAIN_SEED, 0, b, s, cfg.vocab_size)
+    out = {}
+    t0 = time.perf_counter()
+    lg, _, gg = loss_and_grads(card, {k: v.cuda() for k, v in batch.items()},
+                               cfg)
+    torch.cuda.synchronize()
+    out["card_grads_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lc, _, gc = loss_and_grads(cpu, batch, cfg)
+    out["cpu_grads_s"] = time.perf_counter() - t0
+    gc_card = {k: v.cuda() for k, v in gc.items()}  # compared on the card
+    tol = TRAIN_GRAD_TOL
+    out["loss"] = close(torch, lg.cpu(), lc, "train b loss", tol, tol)
+    out["loss_value"] = float(lc)
+    out["grad_norm"] = close(torch, O.global_norm(gg), O.global_norm(
+        gc_card), "train b grad norm", tol, tol)
+    worst = 0.0
+    for k, want in gc_card.items():
+        scale = max(float(want.abs().max()), 1e-30)
+        err = close(torch, gg[k], want, f"train b grad {k}", tol * scale, tol)
+        worst = max(worst, err / scale)
+    out["grad_leaves"] = len(gc)
+    out["grad_worst_rel"] = worst
+    del gg
+    ocfg = O.OptConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+    O.apply(ocfg, card, gc_card, O.init(ocfg, card))
+    t0 = time.perf_counter()
+    O.apply(ocfg, cpu, gc, O.init(ocfg, cpu))
+    out["cpu_apply_s"] = time.perf_counter() - t0
+    got, want = card.reference_leaves(), cpu.reference_leaves()
+    out["apply"] = max(close(torch, got[k], want[k].cuda(), f"train b apply "
+                             f"{k}", TRAIN_APPLY_TOL, TRAIN_APPLY_TOL)
+                       for k in want)
+    del card, cpu, tree, gc, gc_card, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_bound(cfg, counts: dict, b: int, s: int, state_bytes: int
+                ) -> tuple:
+    """3 x the forward's operations (every position's logits; the
+    recomputation not counted) over the peaks, against the parameters
+    read twice and written once, the gradients written and read, and the
+    moments read and written."""
+    if cfg.is_encdec:
+        fwd = enc_forward_ops(cfg, enc_groups(cfg), b, s,
+                              cfg.encoder_frames, s)
+        f32 = 0
+    else:
+        _, _, ops = llm_prefill_bound(cfg, counts, b, s)
+        f32 = llm_ssd_ops(cfg, b, s)
+        fwd = ops - f32 + 2 * b * (s - 1) * cfg.d_model * cfg.vocab_size
+    n_bytes = 5 * counts["bytes"] + 2 * state_bytes
+    return llm_bound(n_bytes, 3 * fwd, 3 * f32)
+
+
+def train_full(torch, g) -> list:
+    """Part c: AdamW steps at full width, timed by CUDA events."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batch_at_step
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_step import build_train_step
+
+    rows = []
+    for arch, layers, b, s in TRAIN_FULL:
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = M.Model.init(cfg, TRAIN_SEED, "cuda")
+        ocfg = O.OptConfig(lr=1e-4, warmup_steps=1, total_steps=100)
+        state = {"opt": O.init(ocfg, model), "metrics": []}
+        batch = {k: v.cuda() for k, v in batch_at_step(
+            TRAIN_SEED, 0, b, s, cfg.vocab_size).items()}
+        if cfg.is_encdec:
+            batch["frames"] = torch.randn(
+                b, cfg.encoder_frames, cfg.d_model, generator=g).to(
+                "cuda", cfg.compute_dtype)
+        step_fn = build_train_step(cfg, ocfg)
+
+        def step():
+            _, state["opt"], m = step_fn(model, state["opt"], batch)
+            state["metrics"].append((m["loss"], m["grad_norm"]))
+
+        ms = llm_events_ms(torch, step, TRAIN_TIMED_STEPS)
+        busy, kernels = llm_device_busy(torch, step)
+        losses = [float(loss) for loss, _ in state["metrics"]]
+        norms = [float(n) for _, n in state["metrics"]]
+        if not all(np.isfinite(losses + norms)):
+            raise AssertionError(f"train c {arch}: non-finite losses {losses}"
+                                 f" or gradient norms {norms}")
+        counts = llm_param_counts(cfg)
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in state["opt"].mu.values()) * 2
+        bound, by, ops = train_bound(cfg, counts, b, s, state_bytes)
+        rows.append(dict(
+            config=arch, layers=cfg.num_layers, batch=b, tokens=s,
+            params=counts["params"], steps=len(losses), ms=ms,
+            tokens_per_s=b * s / ms * 1e3, bound_ms=bound, bound_by=by,
+            flops=ops, device_busy_ms=busy, device_ops=kernels,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            losses=losses, grad_norms=norms,
+            seconds=time.perf_counter() - t_arch))
+        del model, state, batch, step_fn, step
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train(torch, root: Path):
+    """Parts a-c of the training phase."""
+    info = {}
+    t0 = time.perf_counter()
+    info["example"] = train_example(torch, root)
+    a = info["example"]
+    print(f"  train a: examples/train_embedder.py's flow on the card "
+          f"({a['config']}, {a['params']} parameters, {a['steps']} steps of "
+          f"{a['batch']} x {a['seq']}, a fault at step {a['fault_at']}): "
+          f"{a['restarts']} restart, {a['stragglers']} stragglers, mean loss "
+          f"{a['loss_first5']:.4f} over the first 5 steps and "
+          f"{a['loss_last5']:.4f} over the last 5; losses and final "
+          f"parameters equal to an uninterrupted run's bit for bit "
+          f"(deterministic algorithms on); checkpoints of steps "
+          f"{a['checkpoints_verified']} pass their sha256 check; "
+          f"{a['ms_per_step_clean']:.1f} ms a step "
+          f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    info["card_vs_cpu"] = train_card_vs_cpu(torch)
+    bcmp = info["card_vs_cpu"]
+    print(f"  train b: {TRAIN_CMP_ARCH}'s first block with the embedding and"
+          f" the softcapped logits at full width, {TRAIN_CMP_TOKENS[0]} x "
+          f"{TRAIN_CMP_TOKENS[1]} tokens, f32: the card (TF32 off) equals the"
+          f" CPU; loss {bcmp['loss_value']:.4f} within {bcmp['loss']:.3g}, "
+          f"the global norm within {bcmp['grad_norm']:.3g}, the "
+          f"{bcmp['grad_leaves']} gradient leaves within "
+          f"{bcmp['grad_worst_rel']:.3g} of each leaf's largest magnitude "
+          f"(held at {TRAIN_GRAD_TOL}); optimizer.apply given the same "
+          f"gradients within {bcmp['apply']:.3g} (held at {TRAIN_APPLY_TOL})"
+          f"; gradients {bcmp['card_grads_s']:.2f} s on the card, "
+          f"{bcmp['cpu_grads_s']:.1f} s on the CPU, the CPU's update "
+          f"{bcmp['cpu_apply_s']:.1f} s ({time.perf_counter() - t0:.1f} s)")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    info["card"] = card = smi.stdout.strip().splitlines()[0]
+    info["steps"] = train_full(torch, torch.Generator().manual_seed(
+        TRAIN_SEED))
+    print(f"  train c: AdamW steps at full width, bf16 weights and f32 "
+          f"moments, timed by CUDA events on {card} (mean of "
+          f"{TRAIN_TIMED_STEPS} steps after a warm one):")
+    for r in info["steps"]:
+        print(f"    {r['config']:20s} {r['layers']:2d} layers {r['batch']} x "
+              f"{r['tokens']}: {r['ms']:9.1f} ms a step, "
+              f"{r['tokens_per_s']:9.1f} tokens/s, bound {r['bound_ms']:.1f} "
+              f"ms ({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of it; "
+              f"the device busy {r['device_busy_ms']:.1f} ms of a profiled "
+              f"step ({r['device_ops']} kernels and copies); peak "
+              f"{r['peak_gb']:.1f} GB allocated; losses "
+              + ", ".join(f"{v:.4f}" for v in r["losses"]))
+    return info
 
 
 def main() -> int:
@@ -3556,6 +4202,33 @@ def main() -> int:
             engines["pq"].close()
         shutil.rmtree(eng_root, ignore_errors=True)
 
+    # the encoder-decoder family, then training, with the engines closed
+    # and their own counts: no kernel of the port lies on either path
+    torch.cuda.empty_cache()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    enc_info = phase_encdec(torch)
+    enc_counts = {name: fn.launches for name, fn in wrappers.items()}
+    enc_s = time.perf_counter() - t0
+    print(f"encoder-decoder ({enc_s:.1f} s; {ENC_ARCH} at full width and "
+          f"depth; peak {enc_info['peak_gb']:.1f} GB allocated)")
+    print(f"launches on the encdec path: {enc_counts}")
+    print(json.dumps({"encdec": dict(enc_info, seconds=enc_s)}))
+    torch.cuda.empty_cache()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    train_info = phase_train(torch, Path(build.BUILD_DIR).parent
+                             / "chip_smoke_train")
+    train_counts = {name: fn.launches for name, fn in wrappers.items()}
+    train_s = time.perf_counter() - t0
+    print(f"training ({train_s:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB still allocated "
+          "by earlier phases)")
+    print(f"launches on the train path: {train_counts}")
+    print(json.dumps({"train": dict(train_info, seconds=train_s)}))
+
     rows = kernel_rows(torch, ops, ref, build, data_t, q_t, built["isax2+"],
                        built["va+file"], k, counts, pq_in)
     for r in rows:
@@ -3567,7 +4240,9 @@ def main() -> int:
             "ingest": ing_counts[r["name"]],
             "serving": srv_counts[r["name"]],
             "llm": llm_counts[r["name"]],
-            "families": fam_counts[r["name"]]}
+            "families": fam_counts[r["name"]],
+            "encdec": enc_counts[r["name"]],
+            "train": train_counts[r["name"]]}
     shapes = shape_rows(torch, ops, ref, data_t, q_t)
     for r in shapes:
         print(f"  {r['name']} at {r['shape']}: {r['ms']:.4f} ms, bound "

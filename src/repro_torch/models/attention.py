@@ -9,6 +9,10 @@ numerically equivalent where they overlap:
                           layer attends a KV slice of width window+chunk.
 * ``decode_attention``  — one new token against a KV cache.
 
+``cross_attention`` (decoder to encoder, the encoder-decoder family) is
+always the dense path over the encoder's keys: no RoPE, no causal mask,
+no window, whatever the decoder's length.
+
 GQA never materializes repeated KV heads: scores come from the grouped
 einsum ``[B,Sq,Kv,G,D] x [B,Sk,Kv,D] -> [B,Kv,G,Sq,Sk]`` in f32 (the
 reference's ``preferred_element_type``: the operands are widened to f32,
@@ -25,8 +29,8 @@ import torch
 from .layers import rope, rounded, softcap
 from .params import ParamSpec
 
-__all__ = ["NEG_INF", "AttnConfig", "attn_specs", "decode_attention",
-           "self_attention"]
+__all__ = ["NEG_INF", "AttnConfig", "attn_specs", "cross_attention",
+           "cross_kv", "decode_attention", "self_attention"]
 
 NEG_INF = -2.3819763e38  # large negative, safe in bf16 after cast
 
@@ -196,6 +200,40 @@ def self_attention(params, x: torch.Tensor, cfg: AttnConfig, *,
         out = _attend_blockwise(q, k, v, causal=causal, window=window,
                                 logit_cap=cfg.logit_cap, chunk_q=cfg.chunk_q)
     return _out_proj(out, params["wo"]), (k, v)
+
+
+def cross_attention(params, x: torch.Tensor,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                    cfg: AttnConfig) -> torch.Tensor:
+    """Decoder-to-encoder attention: x [B, S, d_model] against the
+    precomputed encoder keys and values ([B, F, Kv, D] each). The queries
+    get no RoPE, the scale rounded to x's dtype; the dense path, unmasked,
+    with the logit cap, at any S."""
+    dtype = x.dtype
+    q = _proj(x, params["wq"])
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(dtype)
+    q = q * rounded(cfg.query_scale or (cfg.head_dim ** -0.5), dtype)
+    k, v = enc_kv
+    dev = x.device
+    out = _attend_dense(q, k, v, causal=False, window=None,
+                        logit_cap=cfg.logit_cap,
+                        q_positions=torch.arange(x.shape[1], device=dev),
+                        k_positions=torch.arange(k.shape[1], device=dev))
+    return _out_proj(out, params["wo"])
+
+
+def cross_kv(params, enc_out: torch.Tensor, cfg: AttnConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output [B, F, d_model] -> the cross keys and values
+    [B, F, Kv, D], in its dtype, without RoPE."""
+    dtype = enc_out.dtype
+    k = _proj(enc_out, params["wk"])
+    v = _proj(enc_out, params["wv"])
+    if cfg.qkv_bias:
+        k = k + params["bk"].to(dtype)
+        v = v + params["bv"].to(dtype)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Shared neural building blocks: norms, the gated MLP, embeddings, RoPE,
-softcap.
+softcap, the cross-entropy loss.
 
 The port's copy of ``src/repro/models/layers.py``, cast for cast.
 ``<name>_specs(...)`` returns a ParamSpec tree, ``<name>_apply(params, x,
@@ -11,16 +11,16 @@ takes it: norm statistics, softcap, softmax, rotary angles.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .params import ParamSpec
 
-__all__ = ["act_fn", "embed_apply", "embed_specs", "logits_apply",
-           "mlp_apply", "mlp_specs", "rmsnorm_apply", "rmsnorm_specs",
-           "rope", "rounded", "softcap"]
+__all__ = ["act_fn", "cross_entropy", "embed_apply", "embed_specs",
+           "logits_apply", "mlp_apply", "mlp_specs", "rmsnorm_apply",
+           "rmsnorm_specs", "rope", "rounded", "softcap"]
 
 
 # ---------------------------------------------------------------------------
@@ -142,3 +142,28 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x2 = x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None, z_loss: float = 0.0
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token-mean cross entropy in f32 with an optional z-loss: logits
+    [..., V], labels [...] -> (loss, {loss, ntokens, ppl_proxy}). Masked
+    tokens weigh 0; the mean is over max(mask.sum(), 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if z_loss:
+        nll = nll + rounded(z_loss, torch.float32) * torch.square(lse)
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.float()
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    loss = (nll * mask).sum() / denom
+    metrics = {"loss": loss, "ntokens": mask.sum(), "ppl_proxy": loss}
+    return loss, metrics

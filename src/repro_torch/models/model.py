@@ -1,43 +1,43 @@
-"""Model facade for the decoder families: dense, MoE, SSM and hybrid.
+"""Model facade for every family: dense, MoE, SSM, hybrid and
+encoder-decoder.
 
 The port's copy of ``src/repro/models/model.py``:
 
 * ``model_specs(cfg)``   — the full parameter ParamSpec tree
 * ``Model``              — the parameters as modules (reference names)
+* ``loss_fn``            — the training forward, cross entropy and the
+                           MoE auxiliary loss
 * ``prefill``            — full-sequence forward filling a cache
 * ``decode_step``        — one-token step against the cache
 * ``decode_cache_specs`` — the cache's specs for a batch and a capacity
 
-An encoder-decoder config raises NotImplementedError: that family waits
-for a later slice (ROADMAP Queue 1). The training loss waits for the
-training slice.
+An encoder-decoder config's batch carries ``frames`` [B, F, d_model]
+beside its tokens; its decoder ends in its own ``dec_norm``, so the
+top-level ``final_norm`` is built (the reference's parameter count) and
+used nowhere.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import LayerDesc, ModelConfig
 
+from . import encdec as encdec_mod
 from . import transformer as tfm
-from .layers import (embed_apply, embed_specs, logits_apply, rmsnorm_apply,
-                     rmsnorm_specs, rounded)
+from .layers import (cross_entropy, embed_apply, embed_specs, logits_apply,
+                     rmsnorm_apply, rmsnorm_specs, rounded)
 from .params import ParamSpec, Params, initialize
 from .ssm import ssm_cache_shape
 
 __all__ = ["FIRST_LAYER", "Model", "alloc_cache", "decode_cache_specs",
-           "decode_step", "model_specs", "prefill"]
+           "decode_step", "loss_fn", "model_specs", "prefill"]
 
 # deepseek-moe's layer 0: attention with a dense FF of its own width
 FIRST_LAYER = LayerDesc(kind="attn", ff="dense")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.is_encdec:
-        raise tfm.not_ported(f"{cfg.name} is an encoder-decoder")
 
 
 # ---------------------------------------------------------------------------
@@ -45,7 +45,6 @@ def _check_family(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    _check_family(cfg)
     specs: Dict[str, Any] = {
         "embed": embed_specs(cfg.vocab_size, cfg.d_model, cfg.param_dtype),
         "final_norm": rmsnorm_specs(cfg.d_model),
@@ -56,6 +55,9 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
                            ("fsdp", "vocab"), dtype=cfg.param_dtype,
                            init="scaled", fan_in_axes=(0,))
         }
+    if cfg.is_encdec:
+        specs["encdec"] = encdec_mod.encdec_specs(cfg)
+        return specs
     if cfg.dense_first_layer:
         specs["first_layer"] = tfm.sublayer_specs(
             cfg, FIRST_LAYER, d_ff_override=cfg.dense_first_d_ff or cfg.d_ff)
@@ -63,26 +65,23 @@ def model_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return specs
 
 
-def _block(tree, g: int):
-    return {k: _block(v, g) if isinstance(v, dict) else v[g]
-            for k, v in tree.items()}
+def _jax_order(paths) -> List[str]:
+    """Dotted paths in the order jax flattens nested dicts: sorted key by
+    key at every level."""
+    return sorted(paths, key=lambda p: p.split("."))
 
 
 class Model(Params):
     """The parameters of ``model_specs(cfg)`` as modules, named by the
-    reference's pytree paths: ``embed.embedding``, ``final_norm.scale``,
-    ``head.w``, ``first_layer.*``, and ``blocks.<g>.sub<i>.*`` for block
-    g, which holds slice g of each stacked ``[G, ...]`` leaf (a view: no
-    copy)."""
+    reference's pytree paths and in its layout: ``embed.embedding``,
+    ``final_norm.scale``, ``head.w``, ``first_layer.*``, and the stacked
+    ``[L, ...]`` leaves of ``blocks`` (or ``encdec.encoder`` and
+    ``encdec.decoder``) whole. The forward takes layer l's slices of
+    them (``params.unstack``) as it runs."""
 
     def __init__(self, cfg: ModelConfig, tree):
-        _check_family(cfg)
-        tree = dict(tree)
-        stacked = tree.pop("blocks")
         super().__init__(tree)
         self.cfg = cfg
-        self.blocks = torch.nn.ModuleList(
-            Params(_block(stacked, g)) for g in range(cfg.num_blocks))
 
     @classmethod
     def init(cls, cfg: ModelConfig, seed: int = 0,
@@ -94,6 +93,12 @@ class Model(Params):
     @property
     def device(self) -> torch.device:
         return self.embed.embedding.device
+
+    def reference_leaves(self) -> Dict[str, torch.nn.Parameter]:
+        """Dotted reference path -> parameter, in the reference's leaf
+        order. The tensors are the model's storage, not copies."""
+        flat = dict(self.named_parameters())
+        return {k: flat[k] for k in _jax_order(flat)}
 
 
 def _embed(params, tokens, cfg: ModelConfig):
@@ -112,31 +117,67 @@ def _logits(params, x, cfg: ModelConfig):
 
 
 def _backbone(params, tokens: torch.Tensor, cfg: ModelConfig, cache=None
-              ) -> torch.Tensor:
-    """tokens [B, S] -> the final-normed hidden states [B, S, d_model];
-    with ``cache`` (from :func:`alloc_cache`) every attention layer's keys
-    and values are written at [:, :S], every mamba layer's conv tails and
-    state."""
+              ) -> Tuple[torch.Tensor, Any]:
+    """tokens [B, S] -> (the final-normed hidden states [B, S, d_model],
+    the MoE loss: the dense first layer's plus the blocks', 0.0 without
+    MoE layers); with ``cache`` (from :func:`alloc_cache`) every
+    attention layer's keys and values are written at [:, :S], every
+    mamba layer's conv tails and state, and no MoE loss is computed."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(params, tokens, cfg)
+    moe0 = 0.0
     if cfg.dense_first_layer:
-        x = tfm._apply_sublayer(
+        x, moe0 = tfm._apply_sublayer(
             params["first_layer"], x, FIRST_LAYER, cfg, positions,
             None if cache is None else cache["first_layer"])
-    x = tfm.run_blocks(params["blocks"], x, cfg, positions,
-                       None if cache is None else cache["blocks"])
-    return rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    x, moe_loss = tfm.run_blocks(params["blocks"], x, cfg, positions,
+                                 None if cache is None else cache["blocks"])
+    return (rmsnorm_apply(params["final_norm"], x, cfg.norm_eps),
+            moe0 + moe_loss)
+
+
+# ---------------------------------------------------------------------------
+# Train forward
+# ---------------------------------------------------------------------------
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: tokens and labels [B, S] (an optional mask; frames [B, F,
+    d_model] for an encoder-decoder) -> (the cross entropy plus the MoE
+    loss, metrics: loss, ntokens, ppl_proxy, moe_loss, total_loss)."""
+    if cfg.is_encdec:
+        enc_out = encdec_mod.encode(params["encdec"], batch["frames"], cfg)
+        x = _embed(params, batch["tokens"], cfg)
+        x = encdec_mod.decode_train(params["encdec"], enc_out, x, cfg)
+        moe_loss = 0.0
+    else:
+        x, moe_loss = _backbone(params, batch["tokens"], cfg)
+    logits = _logits(params, x, cfg)
+    loss, metrics = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    total = loss + moe_loss
+    moe_loss = torch.as_tensor(moe_loss, dtype=torch.float32,
+                               device=loss.device)
+    metrics["moe_loss"] = moe_loss
+    metrics["total_loss"] = total
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
 
-def alloc_cache(cfg: ModelConfig, batch: int, capacity: int, device):
+def alloc_cache(cfg: ModelConfig, batch: int, capacity: int, device,
+                frames: Optional[int] = None):
     """A zeroed cache in the compute dtype, each sub-layer's entry by its
     kind: KV of ``capacity`` positions for attention (ring layers too, as
     the reference's generate pads every KV cache to one capacity), conv
-    tails and state for mamba, which have no sequence axis."""
+    tails and state for mamba, which have no sequence axis. An
+    encoder-decoder's cache holds cross keys and values of ``frames``
+    positions (``cfg.encoder_frames`` by default) beside its self KV."""
+    if cfg.is_encdec:
+        return encdec_mod.alloc_cache(cfg, batch, capacity,
+                                      frames or cfg.encoder_frames, device)
+
     def entry(desc: LayerDesc, lead=()):
         if desc.kind == "attn":
             shape = (batch, capacity, cfg.num_kv_heads, cfg.head_dim)
@@ -155,21 +196,35 @@ def alloc_cache(cfg: ModelConfig, batch: int, capacity: int, device):
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             capacity: Optional[int] = None) -> Tuple[torch.Tensor, Any]:
-    """tokens [B, S] -> (last-position logits [B, 1, V], cache). The KV
-    entries hold ``capacity`` positions (S by default, the reference's
-    extent), the prompt's keys and values at [:S]."""
+    """tokens [B, S] (and frames [B, F, d_model] for an encoder-decoder)
+    -> (last-position logits [B, 1, V], cache). The KV entries hold
+    ``capacity`` positions (S by default, the reference's extent), the
+    prompt's keys and values at [:S]; cross keys and values hold the F
+    frames given, whatever ``cfg.encoder_frames`` says."""
     tokens = batch["tokens"]
     b, s = tokens.shape
+    if cfg.is_encdec:
+        enc_out = encdec_mod.encode(params["encdec"], batch["frames"], cfg)
+        x = _embed(params, tokens, cfg)
+        x, cache = encdec_mod.decode_train(params["encdec"], enc_out, x, cfg,
+                                           collect_cache=True,
+                                           capacity=capacity or s)
+        return _logits(params, x[:, -1:, :], cfg), cache
     cache = alloc_cache(cfg, b, capacity or s, tokens.device)
-    x = _backbone(params, tokens, cfg, cache)
+    x, _ = _backbone(params, tokens, cfg, cache)
     return _logits(params, x[:, -1:, :], cfg), cache
 
 
 def decode_step(params, tokens: torch.Tensor, cache, pos: int,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Any]:
     """tokens [B, 1] at position ``pos`` -> (logits [B, 1, V], cache);
-    the cache is updated in place."""
+    the cache is updated in place. An encoder-decoder's decoder ends in
+    its dec_norm, not final_norm, as the reference's."""
     x = _embed(params, tokens, cfg)
+    if cfg.is_encdec:
+        x, cache = encdec_mod.decode_step(params["encdec"], x, cache, pos,
+                                          cfg)
+        return _logits(params, x, cfg), cache
     if cfg.dense_first_layer:
         x = tfm._sublayer_decode(params["first_layer"], x, FIRST_LAYER, cfg,
                                  cache["first_layer"], pos)
@@ -179,7 +234,8 @@ def decode_step(params, tokens: torch.Tensor, cache, pos: int,
 
 
 def decode_cache_specs(cfg: ModelConfig, batch: int, seq: int):
-    _check_family(cfg)
+    if cfg.is_encdec:
+        return encdec_mod.encdec_cache_specs(cfg, batch, seq)
     cache = {"blocks": tfm.cache_specs(cfg, batch, seq)}
     if cfg.dense_first_layer:
         cache["first_layer"] = tfm.sublayer_cache_spec(cfg, FIRST_LAYER,

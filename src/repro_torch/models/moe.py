@@ -147,10 +147,13 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *,
     buf[dest_flat] = xt.repeat_interleave(k, dim=0)  # token-major [T*K, D]
     buf = buf[:e * cap].reshape(e, cap, d)
 
-    # the gate activated and freed before the up projection: two [E, C, f]
-    # buffers live, not three (jamba's are 3.8 GB each at 8224 tokens)
+    # serving: the gate activated and freed before the up projection, two
+    # [E, C, f] buffers live, not three (jamba's are 3.8 GB each at 8224
+    # tokens); training keeps the activation for the product's backward
     h = act_fn(act)(torch.matmul(buf, params["wi_gate"].to(dtype)))
-    h.mul_(torch.matmul(buf, params["wi_up"].to(dtype)))
+    up = torch.matmul(buf, params["wi_up"].to(dtype))
+    h = h * up if h.requires_grad or up.requires_grad else h.mul_(up)
+    del up
     out_buf = torch.matmul(h, params["wo"].to(dtype)).reshape(e * cap, d)
 
     # gather back, weight, sum over the k copies

@@ -25,7 +25,7 @@ from repro_torch import device as device_mod
 Axis = Optional[str]
 
 __all__ = ["ParamSpec", "Params", "initialize", "is_spec", "param_bytes",
-           "param_count", "spec_leaves", "tree_map_specs"]
+           "param_count", "spec_leaves", "tree_map_specs", "unstack"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,3 +148,17 @@ class Params(torch.nn.Module):
 
     def get(self, key: str, default=None):
         return self[key] if key in self else default
+
+    def items(self):
+        return [*self._modules.items(), *self._parameters.items()]
+
+
+def unstack(tree) -> list:
+    """A stacked subtree (every leaf [L, ...]) as L per-layer trees of
+    views, one ``unbind`` per leaf: its backward stacks the L layers'
+    gradients into the leaf's one [L, ...] gradient (zeros for a layer
+    that gave none)."""
+    cols = {k: unstack(v) if isinstance(v, (dict, Params)) else v.unbind(0)
+            for k, v in tree.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[l] for k, c in cols.items()} for l in range(n)]

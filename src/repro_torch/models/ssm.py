@@ -135,8 +135,11 @@ def ssd_chunked(xh: torch.Tensor, bh: torch.Tensor, ch: torch.Tensor,
     # ---- intra-chunk (attention-like): L[i,j] = exp(cum_i - cum_j), i >= j
     li = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B,nc,Q,Q,H]
     mask = torch.tril(torch.ones(q, q, dtype=torch.bool, device=xh.device))
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(li),
-                        torch.zeros((), device=xh.device))
+    # masked before the exp: above the diagonal cum_i - cum_j > 0 can
+    # overflow, and exp's backward would multiply its zero gradient by inf
+    # (the reference exps first: the same values, NaN gradients there)
+    decay = torch.exp(torch.where(mask[None, None, :, :, None], li,
+                                  -torch.inf))
     scores = torch.einsum("bnihd,bnjhd->bnijh", cc, bc)  # C_i . B_j
     att = scores * decay * dtc[:, :, None, :, :]  # weighted by dt_j
     y_intra = torch.einsum("bnijh,bnjhp->bnihp", att, xc)

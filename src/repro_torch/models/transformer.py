@@ -4,20 +4,25 @@ The port's copy of ``src/repro/models/transformer.py``. Depth is
 ``num_blocks`` repetitions of the config's layer *pattern* (period P);
 layer i's sub-layer is ``pattern[i % P]``: an attention or a mamba mixer,
 then a dense, MoE or no FF. The reference stacks one block's parameters
-along a leading 'layers' axis and scans over blocks; here the stack is a
-``ModuleList`` of blocks (block g holds slice g of every stacked leaf)
-and the scan a Python loop. The cache stays stacked, [G, ...] per
+along a leading 'layers' axis and scans over blocks; here the
+parameters stay stacked and the scan is a Python loop over block g's
+slices of them (``params.unstack``). The cache is stacked too, [G, ...] per
 sub-layer (KV for attention, conv tails and state for mamba: jamba's
 8-layer block carries 7 mamba entries and 1 KV entry), and is written in
-place. Rematerialization has no meaning in serving and is dropped, and so
-is the MoE auxiliary loss, which the reference's prefill drops too.
+place. Without a cache (training) the forward returns the MoE auxiliary
+loss beside the hidden states; with one (serving) it computes none, as
+the reference's prefill drops it. In training (no cache, grad enabled) every block is
+recomputed in the backward pass (``torch.utils.checkpoint``) whenever
+``cfg.remat_policy`` is not ``"none"``: torch has no counterpart of
+jax's ``dots`` policies, so every policy recomputes the whole block.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerDesc, ModelConfig
 
@@ -25,17 +30,11 @@ from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import mlp_apply, mlp_specs, rmsnorm_apply, rmsnorm_specs
-from .params import ParamSpec, tree_map_specs
+from .params import ParamSpec, tree_map_specs, unstack
 
 __all__ = ["attn_config", "block_specs", "cache_specs", "decode_blocks",
-           "not_ported", "run_blocks", "stack_specs", "sublayer_cache_spec",
+           "remat", "run_blocks", "stack_specs", "sublayer_cache_spec",
            "sublayer_specs"]
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}, which repro_torch does not port yet (ROADMAP Queue 1, "
-        "the encdec item)")
 
 
 def attn_config(cfg: ModelConfig) -> attn_mod.AttnConfig:
@@ -106,10 +105,26 @@ def stack_specs(tree, g: int):
 # ---------------------------------------------------------------------------
 
 def _ff(p, h: torch.Tensor, desc: LayerDesc, cfg: ModelConfig
-        ) -> torch.Tensor:
+        ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """The FF's output and the MoE layer's aux values (None if dense)."""
     if desc.ff == "dense":
-        return mlp_apply(p["mlp"], h, act=cfg.act)
-    return moe_mod.moe_apply(p["moe"], h, cfg.moe, act=cfg.act)[0]
+        return mlp_apply(p["mlp"], h, act=cfg.act), None
+    return moe_mod.moe_apply(p["moe"], h, cfg.moe, act=cfg.act)
+
+
+def remat(fn, cfg: ModelConfig):
+    """fn recomputed in the backward pass when the config asks for any
+    remat policy and a graph is being built through its inputs; fn itself
+    otherwise (serving)."""
+    if cfg.remat_policy == "none":
+        return fn
+
+    def call(*args):
+        if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    return call
 
 
 def _write(entry: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
@@ -121,10 +136,11 @@ def _write(entry: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
 def _apply_sublayer(p, x: torch.Tensor, desc: LayerDesc, cfg: ModelConfig,
                     positions: torch.Tensor,
                     entry: Optional[Dict[str, torch.Tensor]] = None
-                    ) -> torch.Tensor:
-    """One sub-layer over the whole sequence. With ``entry`` (its slot of
-    the cache) an attention layer writes its keys and values at [:, :S]
-    of {k, v} [B, cap, Kv, D], a mamba layer its conv tails and state."""
+                    ) -> Tuple[torch.Tensor, Any]:
+    """One sub-layer over the whole sequence: (x, its MoE loss; 0.0 for a
+    dense or no FF, and with a cache). With ``entry`` (its slot of the
+    cache) an attention layer writes its keys and values at [:, :S] of
+    {k, v} [B, cap, Kv, D], a mamba layer its conv tails and state."""
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     if desc.kind == "attn":
         window = cfg.local_window if desc.attn_type == "local" else None
@@ -136,36 +152,60 @@ def _apply_sublayer(p, x: torch.Tensor, desc: LayerDesc, cfg: ModelConfig,
             entry["k"][:, :s] = k.to(entry["k"].dtype)
             entry["v"][:, :s] = v.to(entry["v"].dtype)
     else:
-        out, new = ssm_mod.ssm_apply(p["mamba"], h, cfg.ssm,
-                                     return_cache=True)
-        if entry is not None:
+        if entry is None:
+            out = ssm_mod.ssm_apply(p["mamba"], h, cfg.ssm)
+        else:
+            out, new = ssm_mod.ssm_apply(p["mamba"], h, cfg.ssm,
+                                         return_cache=True)
             _write(entry, new)
     if cfg.post_norm:
         out = rmsnorm_apply(p["post_ln1"], out, cfg.norm_eps)
     x = x + out
+    moe_loss = 0.0
     if desc.ff != "none":
-        out = _ff(p, rmsnorm_apply(p["ln2"], x, cfg.norm_eps), desc, cfg)
+        out, aux = _ff(p, rmsnorm_apply(p["ln2"], x, cfg.norm_eps), desc,
+                       cfg)
+        if aux is not None and entry is None:
+            moe_loss = moe_mod.moe_loss(aux, cfg.moe)
         if cfg.post_norm:
             out = rmsnorm_apply(p["post_ln2"], out, cfg.norm_eps)
         x = x + out
-    return x
+    return x, moe_loss
 
 
 def _entry(cache, key: str, g: int):
     return None if cache is None else {n: t[g] for n, t in cache[key].items()}
 
 
-def run_blocks(blocks, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor, cache=None) -> torch.Tensor:
-    """Every block in order. ``cache`` (the stacked cache's 'blocks' part)
-    receives each sub-layer's entry."""
-    _check_one_card(cfg)
-    for g, bp in enumerate(blocks):
-        for i, desc in enumerate(cfg.pattern):
-            key = f"sub{i}"
-            x = _apply_sublayer(bp[key], x, desc, cfg, positions,
+def _block_fwd(bp, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor, cache, g: int
+               ) -> Tuple[torch.Tensor, Any]:
+    moe_total = 0.0
+    for i, desc in enumerate(cfg.pattern):
+        key = f"sub{i}"
+        x, ml = _apply_sublayer(bp[key], x, desc, cfg, positions,
                                 _entry(cache, key, g))
-    return x
+        moe_total = moe_total + ml
+    return x, moe_total
+
+
+def run_blocks(blocks, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor, cache=None
+               ) -> Tuple[torch.Tensor, Any]:
+    """Every block in order: (x, the MoE loss summed over blocks in
+    order; 0.0 without MoE layers or with a cache). ``cache`` (the stacked
+    cache's 'blocks' part) receives each sub-layer's entry; without one,
+    each block is recomputed in the backward pass as ``remat`` decides."""
+    _check_one_card(cfg)
+    moe_total = 0.0
+    for g, bp in enumerate(unstack(blocks)):
+        if cache is None:
+            x, ml = remat(lambda h, bp=bp, g=g: _block_fwd(
+                bp, h, cfg, positions, None, g), cfg)(x)
+        else:
+            x, ml = _block_fwd(bp, x, cfg, positions, cache, g)
+        moe_total = moe_total + ml
+    return x, moe_total
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +229,7 @@ def _sublayer_decode(p, x: torch.Tensor, desc: LayerDesc, cfg: ModelConfig,
         out = rmsnorm_apply(p["post_ln1"], out, cfg.norm_eps)
     x = x + out
     if desc.ff != "none":
-        out = _ff(p, rmsnorm_apply(p["ln2"], x, cfg.norm_eps), desc, cfg)
+        out = _ff(p, rmsnorm_apply(p["ln2"], x, cfg.norm_eps), desc, cfg)[0]
         if cfg.post_norm:
             out = rmsnorm_apply(p["post_ln2"], out, cfg.norm_eps)
         x = x + out
@@ -200,7 +240,7 @@ def decode_blocks(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
                   pos: int) -> torch.Tensor:
     """One token through the stack; the cache is updated in place."""
     _check_one_card(cfg)
-    for g, bp in enumerate(blocks):
+    for g, bp in enumerate(unstack(blocks)):
         for i, desc in enumerate(cfg.pattern):
             key = f"sub{i}"
             x = _sublayer_decode(bp[key], x, desc, cfg, _entry(cache, key, g),

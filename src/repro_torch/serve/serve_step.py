@@ -8,7 +8,11 @@ does without a second copy. Sampling is greedy (the first maximum, as
 ``jnp.argmax`` and ``torch.argmax`` both take) or temperature-categorical
 from a ``torch.Generator``: the reference draws from jax keys, which torch
 cannot reproduce, so a sampled run is reproducible from its generator
-only. The encoder-decoder branch waits for that family (ROADMAP Queue 1).
+only. An encoder-decoder takes its frames [B, F, d_model] beside the
+prompt; only its self keys and values are allocated at capacity, its
+cross keys and values keep the frames' extent. Generation runs where the
+parameters live: a model is built on the card unless its caller asks for
+the CPU.
 """
 
 from __future__ import annotations
@@ -53,16 +57,23 @@ def build_decode_step(cfg: ModelConfig, *, sample: str = "greedy",
 
 def generate(params, cfg: ModelConfig, prompt, n_steps: int, *,
              sample: str = "greedy",
-             generator: Optional[torch.Generator] = None
-             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+             generator: Optional[torch.Generator] = None,
+             frames=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """prompt [B, S] (a tensor or array; moved to the parameters' device)
     -> generated tokens [B, n_steps] int32 on that device, and {"cache"}.
-    The first token is the prefill's argmax, as the reference's. A sampled
-    run draws from ``generator`` (one seeded 0 on the device if none)."""
+    An encoder-decoder needs ``frames`` [B, F, d_model]. The first token
+    is the prefill's argmax, as the reference's. A sampled run draws from
+    ``generator`` (one seeded 0 on the device if none)."""
     dev = params.device
     prompt = torch.as_tensor(prompt, device=dev)
     b, s = prompt.shape
-    logits, cache = model_mod.prefill(params, {"tokens": prompt}, cfg,
+    batch = {"tokens": prompt}
+    if cfg.is_encdec:
+        if frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: generate "
+                             "needs its frames")
+        batch["frames"] = torch.as_tensor(frames, device=dev)
+    logits, cache = model_mod.prefill(params, batch, cfg,
                                       capacity=s + n_steps)
     step_fn = build_decode_step(cfg, sample=sample)
     if sample != "greedy" and generator is None:

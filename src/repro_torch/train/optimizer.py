@@ -1,0 +1,134 @@
+"""Optimizers: AdamW and SGD with momentum, the schedule, clipping.
+
+The port's copy of ``src/repro/train/optimizer.py``. The optimizer state
+mirrors the parameters leaf by leaf in the reference's layout: a dict of
+dotted reference paths (``blocks.sub0.attn.wq``) to tensors shaped like
+the reference's leaves (layer leaves stacked ``[L, ...]``), in its leaf
+order. ``params`` is a :class:`~repro_torch.models.model.Model` (its
+:meth:`reference_leaves`) or such a dict, and ``grads`` such a dict.
+
+The arithmetic is the reference's, in f32: the schedule and the bias
+corrections ``1 - b ** t`` from the step in f32, the global norm summed
+leaf by leaf in the reference's leaf order, every update computed in f32
+and cast to the parameter's and the state's dtype. The parameters and the
+moments are updated in place (no second copy of either); ``apply``
+returns the same parameters and a new :class:`OptState` holding the
+updated moments.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+
+__all__ = ["OptConfig", "OptState", "apply", "global_norm", "init",
+           "schedule"]
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    state_dtype: Any = torch.float32  # bf16 halves optimizer memory
+
+
+def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup, then cosine decay to ``min_lr_frac``: f32 0-d."""
+    step = torch.as_tensor(step).float()
+    warm = torch.clamp_max(step / max(cfg.warmup_steps, 1), 1.0)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0,
+                       1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * prog))
+    frac = cfg.min_lr_frac + (1.0 - cfg.min_lr_frac) * cos
+    return cfg.lr * warm * frac
+
+
+class OptState(NamedTuple):
+    step: torch.Tensor  # int32 0-d
+    mu: Dict[str, torch.Tensor]  # first moment, by reference path
+    nu: Dict[str, torch.Tensor]  # second moment (zeros for sgdm)
+
+
+def _leaves(params) -> Dict[str, torch.Tensor]:
+    return (params.reference_leaves() if hasattr(params, "reference_leaves")
+            else params)
+
+
+def init(cfg: OptConfig, params) -> OptState:
+    leaves = _leaves(params)
+    dev = next(iter(leaves.values())).device
+
+    def zeros():
+        return {k: torch.zeros(p.shape, dtype=cfg.state_dtype,
+                               device=p.device) for k, p in leaves.items()}
+
+    return OptState(torch.zeros((), dtype=torch.int32, device=dev), zeros(),
+                    zeros())
+
+
+def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum, leaf after leaf in order, of each leaf's f32 sum
+    of squares."""
+    total = 0
+    for leaf in tree.values():
+        total = total + torch.sum(torch.square(leaf.float()))
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def apply(cfg: OptConfig, params, grads: Dict[str, torch.Tensor],
+          state: OptState) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
+    """One update of ``params`` (in place) from ``grads``: (params, the
+    new state, {lr, grad_norm})."""
+    if cfg.name not in ("adamw", "sgdm"):
+        raise ValueError(cfg.name)
+    leaves = _leaves(params)
+    step = state.step + 1
+    lr = schedule(cfg, step)
+    gnorm = global_norm({k: grads[k] for k in leaves})
+    if cfg.clip_norm:
+        scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
+                                1.0)
+    else:
+        scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
+    b1, b2 = cfg.b1, cfg.b2
+    t = step.float()
+    bc1 = 1.0 - torch.pow(b1, t)
+    bc2 = 1.0 - torch.pow(b2, t)
+
+    for k, p in leaves.items():
+        m, v = state.mu[k], state.nu[k]
+        gf = grads[k].float() * scale
+        pf = p.float()
+        if cfg.name == "adamw":
+            m1 = b1 * m.float() + (1 - b1) * gf
+            v1 = ((1 - b2) * gf).mul_(gf).add_(b2 * v.float())
+            del gf
+            delta = (m1 / bc1).div_(torch.sqrt(v1 / bc2).add_(cfg.eps))
+            if cfg.weight_decay:
+                delta.add_(cfg.weight_decay * pf)
+            delta.mul_(lr)
+            v.copy_(v1)
+            del v1
+        else:
+            m1 = b1 * m.float() + gf
+            del gf
+            delta = m1 * lr
+        m.copy_(m1)
+        del m1
+        p.copy_(pf - delta)
+        del delta
+    return params, OptState(step, state.mu, state.nu), {"lr": lr,
+                                                         "grad_norm": gnorm}

@@ -721,3 +721,83 @@ def test_hybrid_model_on_the_card_matches_the_cpu(cuda):
 
     for got, want in zip(_no_tf32(lambda: run(cuda)), run("cpu")):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_seamless_decoder_layer_on_the_card_matches_the_cpu(cuda):
+    """seamless's smoke config in f32 (TF32 off): encode, one decoder
+    layer with its real cross cache, prefill at a capacity past S and a
+    decode step on the card equal the CPU's within atol = rtol = 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import encdec as E
+    from repro_torch.models import model as M
+    from repro_torch.models import params as P
+
+    cfg = dataclasses.replace(get_smoke_config("seamless-m4t-medium"),
+                              num_layers=1, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    tree = P.initialize(M.model_specs(cfg), 0, "cpu")
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=g)
+    frames = torch.randn(2, 10, cfg.d_model, generator=g)
+
+    def run(dev):
+        model = M.Model(cfg, _tree_to(tree, dev))
+        enc = E.encode(model["encdec"], frames.to(dev), cfg)
+        lg, cache = M.prefill(model, {"tokens": toks.to(dev),
+                                      "frames": frames.to(dev)}, cfg,
+                              capacity=13)
+        dl, _ = M.decode_step(model, toks[:, :1].to(dev), cache, 12, cfg)
+        return [t.cpu() for t in (enc, lg, cache["ck"], cache["k"], dl)]
+
+    got = _no_tf32(lambda: run(cuda))
+    for a, b in zip(got, run("cpu")):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["minitron-8b", "deepseek-moe-16b",
+                                  "seamless-m4t-medium"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One loss_and_grads in f32 (TF32 off): the loss and every gradient
+    leaf within atol = rtol = 1e-4 of the leaf's largest magnitude; then
+    optimizer.apply given the CPU's gradients within 1e-6."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import batch_at_step
+    from repro_torch.models import model as M
+    from repro_torch.models import params as P
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_step import loss_and_grads
+
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    tree = P.initialize(M.model_specs(cfg), 0, "cpu")
+    batch = batch_at_step(0, 0, 2, 16, cfg.vocab_size)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(
+            2, cfg.encoder_frames, cfg.d_model,
+            generator=torch.Generator().manual_seed(2))
+
+    def run(dev):
+        model = M.Model(cfg, _tree_to(tree, dev))
+        loss, _, grads = loss_and_grads(
+            model, {k: v.to(dev) for k, v in batch.items()}, cfg)
+        return model, loss.cpu(), {k: g.cpu() for k, g in grads.items()}
+
+    card, loss_g, grads_g = _no_tf32(lambda: run(cuda))
+    cpu, loss_c, grads_c = run("cpu")
+    torch.testing.assert_close(loss_g, loss_c, atol=1e-4, rtol=1e-4)
+    for k, want in grads_c.items():
+        scale = float(want.abs().max())
+        torch.testing.assert_close(grads_g[k], want, rtol=1e-4,
+                                   atol=1e-4 * max(scale, 1e-30), msg=k)
+    ocfg = O.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    O.apply(ocfg, card, {k: g.to(cuda) for k, g in grads_c.items()},
+            O.init(ocfg, card))
+    O.apply(ocfg, cpu, grads_c, O.init(ocfg, cpu))
+    for k, want in cpu.reference_leaves().items():
+        torch.testing.assert_close(card.reference_leaves()[k].cpu(), want,
+                                   atol=1e-6, rtol=1e-6, msg=k)

@@ -4,9 +4,8 @@ mamba2-370m and jamba-v0.1-52b, with the reference's weights carried
 into the port by ``params_from_jax``: prefill logits and every cache
 entry (KV and SSM), two decode steps from the reference's own cache
 (``cache_from_jax``), greedy generate, and the port's own prefill/decode
-consistency. The specs of every full config but the encoder-decoder
-count the reference's parameters, bytes and active parameters (no
-allocation).
+consistency. The specs of every full config count the reference's
+parameters, bytes and active parameters (no allocation).
 
 Tolerances: f32 atol = rtol = 1e-4. bf16: test_torch_models.BF16_TOL
 (atol 0.25, rtol 0.02) for logits, KV and conv tails, where the largest
@@ -36,7 +35,6 @@ from repro.serve.serve_step import generate as jgenerate
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import model as M
 from repro_torch.models import params as P
-from repro_torch.models import transformer as tfm
 from repro_torch.models.convert import cache_from_jax
 from repro_torch.serve.serve_step import generate
 from test_torch_models import (B, BF16_TOL, F32_TOL, S, _close, _jdecode,
@@ -132,8 +130,7 @@ def test_greedy_generate_equals_reference(arch):
         assert entry["k"].shape[2] == 6 + 8
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS
-                                  if a != "seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_param_and_active_counts_equal_reference(arch):
     cfg, jcfg = get_config(arch), jget_config(arch)
     specs, jspecs = M.model_specs(cfg), JM.model_specs(jcfg)
@@ -179,13 +176,6 @@ def test_init_scales_in_place_bit_identically(dtype):
     want = (torch.randn((96, 40), generator=torch.Generator().manual_seed(20))
             * (1.0 / 96 ** 0.5)).to(dtype)
     assert got.dtype == dtype and torch.equal(got, want)
-
-
-def test_not_ported_names_the_encdec_item():
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1, the encdec item"):
-        M.model_specs(get_config("seamless-m4t-medium"))
-    assert "encdec" in str(tfm.not_ported("x"))
 
 
 def test_hybrid_cache_is_laid_out_by_kind():
