@@ -199,7 +199,29 @@ Phases, each of which fails the run by raising:
      one profiled step's busy time and the peak memory allocated, every
      loss and gradient norm finite. No kernel of the port lies on this
      path either (all 0);
-  15. kernels at the main path's shapes: each kernel against its plain
+  15. the roofline tooling (src/repro_torch/launch/), after the engines
+     are closed: (a) the paper's search cell at the reference's
+     dryrun_search settings on the main path's collection (a DSTree at
+     leaf_cap 512, 256 noisy queries of seed 11, k = 100, nprobe 128,
+     visit_batch 8; n_per_shard cut from 2,000,000 to N for host time),
+     solo and with share_gathers, each through
+     ``dryrun_search.lower_search`` measured by
+     ``roofline.profile_device`` (CUDA events over 3 steps after a warm
+     one, one profiled step: busy time, idle share, kernels, roofline
+     share against the analytic terms), every returned distance its
+     id's true distance, recall against brute force reported, the path's
+     kernel inputs held against the plain versions; (b) every production
+     cell (ARCH_IDS x SHAPES) that the dry run (``dryrun.fits_hbm`` on
+     meta, at world 1) says fits one card, which must include gemma2-2b
+     long_500k (run first) and mamba2-370m decode_32k and long_500k: the
+     cell's ``lower_cell`` report, then bf16 weights drawn on the card
+     from seed 23, the cache at the shape's capacity, one decode step at
+     pos = seq - 1 warm, 3 timed and one profiled, the logits finite;
+     the meta run's live bytes beside max_memory_allocated and
+     chip_smoke's own decode bound beside the analytic terms. Launch
+     counts are zeroed before and read after; K1, K4 and lex_select must
+     have run;
+  16. kernels at the main path's shapes: each kernel against its plain
      version, timed with CUDA events beside the plain version, one
      PyTorch library call where one computes the same function (for K3
      the cuBLAS expanded form; cdist beside it as ``cdist_ms``), and the
@@ -212,7 +234,8 @@ Phases, each of which fails the run by raising:
 
 Prints a ``{"serving": ...}`` line, an ``{"llm": ...}`` line, a
 ``{"families": ...}`` line, an ``{"encdec": ...}`` line, a ``{"train":
-...}`` line, a ``{"kernels": [...]}`` line, then
+...}`` line, a ``{"roofline": ...}`` line, a ``{"kernels": [...]}`` line,
+then
 ``{"ok": true, "device": ...}`` as its last line. Exits non-zero without a result when no CUDA device
 is present or the package is missing.
 """
@@ -228,7 +251,6 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import argparse
 import json
 import shutil
-import subprocess
 import sys
 import threading
 import time
@@ -237,12 +259,17 @@ from pathlib import Path
 
 import numpy as np
 
-# H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, and device memory bandwidth. The f32 rate counts an FMA as two
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# H100 SXM published peaks (NVIDIA data sheet), the port's one set: f32
+# outside the tensor cores, bf16 on them, and device memory bandwidth;
+# the profiler's busy time of one call, and the card's name and power
+# limit as nvidia-smi prints them. The f32 rate counts an FMA as two
 # operations, so an f32 instruction that is not an FMA issues at half it
-PEAK_F32_FLOPS = 67e12
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW as PEAK_BYTES, PEAK_F32_FLOPS, PEAK_FLOPS as PEAK_BF16_FLOPS,
+    card as card_name, device_busy)
+
 PEAK_F32_INSTR = PEAK_F32_FLOPS / 2
-PEAK_BYTES = 3.35e12
 # summary-space values (K1, K2)
 TOL = 1e-3
 # squared distances (K3, K4, searches), about 512 at the main path: IEEE
@@ -2337,8 +2364,6 @@ LLM_ARCH = "gemma2-2b"
 # f32 norms)
 LLM_PARAMS, LLM_BYTES = 2_614_341_888, 5_229_167_616
 LLM_SEED = 20
-# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
-PEAK_BF16_FLOPS = 989e12
 # b: one block (local, then global) at full width, the card against the
 # CPU on one set of weights: f32 (TF32 off) at atol = rtol = 1e-3; bf16 on
 # the card against f32 on the CPU at LLM_BF16_VS_F32, about twice the
@@ -2387,22 +2412,6 @@ def llm_events_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def llm_device_busy(torch, fn) -> tuple:
-    """(device-busy ms, kernels) of one call of fn, warm, from
-    torch.profiler's CUDA activity: the sum of its kernels' and copies'
-    durations (one stream: they do not overlap)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events()
-           if str(e.device_type).rsplit(".", 1)[-1] == "CUDA"]
-    return sum(e.time_range.elapsed_us() for e in evs) / 1e3, len(evs)
 
 
 def llm_descs(cfg) -> list:
@@ -2622,7 +2631,7 @@ def llm_timings(torch, M, model, cfg, counts: dict, g) -> list:
             return M.prefill(model, {"tokens": t}, cfg)
 
         ms = llm_events_ms(torch, pre, 3)
-        busy, kernels = llm_device_busy(torch, pre)
+        busy, kernels = device_busy(pre)
         bound, by, ops = llm_prefill_bound(cfg, counts, b, s)
         rows.append(dict(what="prefill", batch=b, tokens=s, ms=ms,
                          tokens_per_s=b * s / ms * 1e3, bound_ms=bound,
@@ -2644,7 +2653,7 @@ def llm_timings(torch, M, model, cfg, counts: dict, g) -> list:
                 int(r[1].unique().numel()))):
             step()
         ms = llm_events_ms(torch, step, 10)
-        busy, kernels = llm_device_busy(torch, step)
+        busy, kernels = device_busy(step)
         del cache, step  # 7 GB at batch 32 (gemma)
         bound, by, ops = llm_decode_bound(cfg, counts, b, LLM_DECODE_CACHE,
                                           sum(used) * per_expert)
@@ -2767,10 +2776,7 @@ def phase_llm_model(torch):
           "finite")
 
     # ---- d. timings against their bounds
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    info["card"] = smi.stdout.strip().splitlines()[0]
+    info["card"] = card_name()
     info["timings"] = llm_timings(torch, M, model, cfg, counts, g)
     print_llm_timings("llm d", info["card"], info["timings"])
     return model, cfg, info
@@ -3268,10 +3274,7 @@ def phase_families(torch, S, resident, live, writes, q, f_ms, path):
             del m32
 
         # ---- d. timings
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True, timeout=60, check=True)
-        card = smi.stdout.strip().splitlines()[0]
+        card = card_name()
         res["card"] = card
         res["timings"] = llm_timings(torch, M, model, cfg, counts, g)
         print_llm_timings(f"{arch} d", card, res["timings"])
@@ -3465,7 +3468,7 @@ def enc_timings(torch, M, model, cfg, counts: dict, groups: dict, g) -> list:
             return M.prefill(model, {"tokens": t, "frames": fr}, cfg)
 
         ms = llm_events_ms(torch, pre, 3)
-        busy, kernels = llm_device_busy(torch, pre)
+        busy, kernels = device_busy(pre)
         bound, by, ops = enc_prefill_bound(cfg, counts, groups, b, s, f)
         rows.append(dict(what="prefill", batch=b, tokens=s, frames=f, ms=ms,
                          tokens_per_s=b * s / ms * 1e3, bound_ms=bound,
@@ -3479,7 +3482,7 @@ def enc_timings(torch, M, model, cfg, counts: dict, groups: dict, g) -> list:
             return M.decode_step(model, t, cache, LLM_DECODE_CACHE - 1, cfg)
 
         ms = llm_events_ms(torch, step, 10)
-        busy, kernels = llm_device_busy(torch, step)
+        busy, kernels = device_busy(step)
         del cache, step
         bound, by, ops = enc_decode_bound(cfg, groups, b, LLM_DECODE_CACHE, f)
         rows.append(dict(what="decode", batch=b, tokens=LLM_DECODE_CACHE,
@@ -3580,10 +3583,7 @@ def phase_encdec(torch):
           f"{info['init_s']:.2f} s")
 
     # ---- c. timings
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     info["card"] = card
     info["timings"] = enc_timings(torch, M, model, cfg, counts, groups, g)
     print_llm_timings("encdec c", card, info["timings"])
@@ -3818,7 +3818,7 @@ def train_full(torch, g) -> list:
             state["metrics"].append((m["loss"], m["grad_norm"]))
 
         ms = llm_events_ms(torch, step, TRAIN_TIMED_STEPS)
-        busy, kernels = llm_device_busy(torch, step)
+        busy, kernels = device_busy(step)
         losses = [float(loss) for loss, _ in state["metrics"]]
         norms = [float(n) for _, n in state["metrics"]]
         if not all(np.isfinite(losses + norms)):
@@ -3873,10 +3873,7 @@ def phase_train(torch, root: Path):
           f"; gradients {bcmp['card_grads_s']:.2f} s on the card, "
           f"{bcmp['cpu_grads_s']:.1f} s on the CPU, the CPU's update "
           f"{bcmp['cpu_apply_s']:.1f} s ({time.perf_counter() - t0:.1f} s)")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    info["card"] = card = smi.stdout.strip().splitlines()[0]
+    info["card"] = card = card_name()
     info["steps"] = train_full(torch, torch.Generator().manual_seed(
         TRAIN_SEED))
     print(f"  train c: AdamW steps at full width, bf16 weights and f32 "
@@ -3894,6 +3891,167 @@ def phase_train(torch, root: Path):
     return info
 
 
+# the roofline phase (15): the paper's search cell at the reference's
+# dryrun_search settings on the main path's collection (n_per_shard cut
+# from 2,000,000 to the collection's 2^20 for host time), solo and
+# cooperative; then every production decode cell that the dry run says
+# fits one card whole, at full width and depth, bf16 weights from
+# ROOF_SEED, gemma2-2b long_500k first on an emptied card
+ROOF_LEAF_CAP, ROOF_QUERIES, ROOF_QSEED = 512, 256, 11
+ROOF_K, ROOF_NPROBE, ROOF_VB = 100, 128, 8
+ROOF_SEED = 23
+ROOF_FIRST = ("gemma2-2b", "long_500k")
+ROOF_AT_LEAST = (("gemma2-2b", "long_500k"), ("mamba2-370m", "decode_32k"),
+                 ("mamba2-370m", "long_500k"))
+
+
+def roof_line(label: str, rep: dict) -> str:
+    t, m = rep["terms_seconds"], rep["memory_analysis"]
+    return (f"  {label}: {rep['measured_seconds'] * 1e3:.3f} ms a step, "
+            f"busy {rep['busy_seconds'] * 1e3:.3f} ms (idle share "
+            f"{rep['idle_share']:.3f}, {rep['kernels']} kernels and "
+            f"copies); analytic compute {t['compute'] * 1e3:.4f} ms, "
+            f"memory {t['memory'] * 1e3:.4f} ms: roofline share "
+            f"{rep['roofline_share']:.4f} ({rep['roofline_bound']}); "
+            f"meta live {m['live_bytes'] / 1e9:.2f} GB, "
+            f"max_memory_allocated {rep['peak_bytes'] / 1e9:.2f} GB; "
+            f"{rep['device']}")
+
+
+def roof_search(torch, S, data, data_t, path) -> list:
+    """(a) The search cell: a DSTree at ROOF_LEAF_CAP over the collection,
+    ROOF_QUERIES noisy queries (seed ROOF_QSEED),
+    ``dryrun_search.lower_search`` measured solo and with share_gathers
+    (K1, K4 and lex_select), then one more search of each recorded by
+    ``path``. Every returned distance must be its id's true distance;
+    recall against brute force is reported."""
+    from repro_torch.core.indexes import dstree
+    from repro_torch.core.metrics import workload_metrics
+    from repro_torch.data import queries
+    from repro_torch.launch import dryrun_search
+
+    q_t = torch.as_tensor(queries.noisy_queries(data, ROOF_QUERIES,
+                                                seed=ROOF_QSEED),
+                          device="cuda")
+    truth = S.brute_force(q_t, data_t, ROOF_K, device="cuda")
+    t0 = time.perf_counter()
+    idx = dstree.build(data, leaf_cap=ROOF_LEAF_CAP, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n, length = data.shape
+    dist = sq_dist64(torch, q_t, data_t, torch.arange(n, device="cuda"))
+    reps = []
+    for coop in (False, True):
+        rep = dryrun_search.lower_search(
+            n_per_shard=n, series_len=length, leaf_cap=ROOF_LEAF_CAP,
+            batch=ROOF_QUERIES, k=ROOF_K, nprobe=ROOF_NPROBE,
+            visit_batch=ROOF_VB, coop=coop, index=idx, queries=q_t)
+        with path:
+            res = S.search_impl(idx, q_t, ROOF_K, nprobe=ROOF_NPROBE,
+                                visit_batch=ROOF_VB, share_gathers=coop)
+        if res.dists.shape != (ROOF_QUERIES, ROOF_K) or not bool(
+                torch.isfinite(res.dists).all()):
+            raise AssertionError("roofline search: wrong shape or a "
+                                 "non-finite distance")
+        err = dist_close(torch, res.dists.double() ** 2, dist(res.ids),
+                         f"roofline search coop={coop}: returned distances")
+        m = workload_metrics(res.ids, res.dists, truth.ids, truth.dists)
+        rep.update(variant="coop" if coop else "solo", build_s=build_s,
+                   dist_err=err,
+                   recall=m["avg_recall"], map=m["map"],
+                   reduced="n_per_shard cut from 2,000,000 to "
+                           f"{n:,} for host time")
+        reps.append(rep)
+    del idx
+    return reps
+
+
+def roof_decode_cell(torch, arch: str, shape_name: str, g) -> dict:
+    """(b) One production decode cell at full width and depth on the
+    card: the dry run's report (``lower_cell`` on meta), then bf16
+    weights from ROOF_SEED, the cache at the shape's capacity, one warm
+    step at pos = seq - 1, 3 timed and one profiled
+    (``roofline.profile_device``); the logits finite. The bound
+    chip_smoke's LLM phases use (``llm_decode_bound``) beside the
+    analytic terms."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as roof
+    from repro_torch.models import model as M
+
+    cfg, sh = get_config(arch), SHAPES[shape_name]
+    if sh.kind != "decode":
+        raise AssertionError(f"{arch} {shape_name} fits one card by the dry "
+                             f"run, and phase 15 runs only decode cells")
+    t0 = time.perf_counter()
+    rep = dryrun.lower_cell(arch, shape_name)
+    meta_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    model = M.Model.init(cfg, ROOF_SEED, "cuda")
+    cache = M.alloc_cache(cfg, sh.batch, sh.seq, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (sh.batch, 1),
+                         generator=g).cuda()
+    out = []
+
+    def step():
+        out[:] = [M.decode_step(model, toks, cache, sh.seq - 1, cfg)[0]]
+
+    with torch.no_grad():
+        measured = roof.profile_device(step, inputs=(toks,))
+    logits = out[0]
+    if logits.shape != (sh.batch, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} {shape_name}: decode logits of the "
+                             "wrong shape or not finite")
+    roof.add_measured(rep, measured)
+    bound, by, ops = llm_decode_bound(cfg, llm_param_counts(cfg), sh.batch,
+                                      sh.seq)
+    rep.update(meta_s=meta_s, held_before_bytes=held, smoke_bound_ms=bound,
+               smoke_bound_by=by, smoke_bound_ops=ops)
+    del model, cache, out, logits, step
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_roofline(torch, S, data, data_t, path) -> dict:
+    """Phase 15: the search cell, then the production decode cells the dry
+    run (``dryrun.fits_hbm``, meta) says fit; their reports."""
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    search = roof_search(torch, S, data, data_t, path)
+    held = path.check("roofline")
+    search_s = time.perf_counter() - t0
+    for rep in search:
+        print(roof_line(f"search {rep['variant']} ("
+                        f"{rep['search']['loop_iterations']} iterations, "
+                        f"recall {rep['recall']:.3f})", rep))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fits = {(a, s): dryrun.fits_hbm(a, s) for a in ARCH_IDS for s in SHAPES}
+    fit_s = time.perf_counter() - t0
+    cells = [c for c, f in fits.items() if f["fits_hbm"]]
+    missing = [c for c in ROOF_AT_LEAST if c not in cells]
+    if missing:
+        raise AssertionError(f"the dry run says these cells do not fit one "
+                             f"card: {missing}")
+    cells.sort(key=lambda c: c != ROOF_FIRST)
+    print(f"  cells that fit one card by the dry run ({fit_s:.1f} s on the "
+          f"host, meta): {cells}")
+    g = torch.Generator().manual_seed(ROOF_SEED)
+    reports = []
+    for arch, shape in cells:
+        rep = roof_decode_cell(torch, arch, shape, g)
+        print(roof_line(f"{arch} {shape}", rep)
+              + f"; chip_smoke's decode bound {rep['smoke_bound_ms']:.4f} ms"
+              f" ({rep['smoke_bound_by']})")
+        reports.append(rep)
+    return {"search": search, "cells": reports, "held": len(held),
+            "search_s": search_s, "fits_s": fit_s,
+            "total_memory": torch.cuda.get_device_properties(0).total_memory}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-series", type=int, default=1 << 20)
@@ -3905,8 +4063,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    root = Path(__file__).resolve().parent
-    sys.path.insert(0, str(root / "src"))
     from repro_torch.core import guarantees as G
     from repro_torch.core import search as S
     from repro_torch.core.indexes import (dstree, graph, imi, isax, qalsh,
@@ -3918,11 +4074,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_name())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
@@ -4229,6 +4381,27 @@ def main() -> int:
     print(f"launches on the train path: {train_counts}")
     print(json.dumps({"train": dict(train_info, seconds=train_s)}))
 
+    # the roofline phase, with its own counts: the search cell (K1, K4 and
+    # lex_select through the path's recorder), then the decode cells
+    torch.cuda.empty_cache()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    roof_info = phase_roofline(torch, S, data, data_t,
+                               PathInputs(torch, ops, ref, wrappers))
+    roof_counts = {name: fn.launches for name, fn in wrappers.items()}
+    roof_s = time.perf_counter() - t0
+    print(f"roofline ({roof_s:.1f} s: search {roof_info['search_s']:.1f} s, "
+          f"{roof_info['held']} kernel inputs held against the plain "
+          f"versions; total_memory {roof_info['total_memory']} bytes)")
+    print(f"launches on the roofline path: {roof_counts}")
+    missing = [name for name in ("box_mindist", "coop_score_select",
+                                 "lex_select") if roof_counts[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the roofline path: "
+                             f"{missing}")
+    print(json.dumps({"roofline": dict(roof_info, seconds=roof_s)}))
+
     rows = kernel_rows(torch, ops, ref, build, data_t, q_t, built["isax2+"],
                        built["va+file"], k, counts, pq_in)
     for r in rows:
@@ -4242,7 +4415,8 @@ def main() -> int:
             "llm": llm_counts[r["name"]],
             "families": fam_counts[r["name"]],
             "encdec": enc_counts[r["name"]],
-            "train": train_counts[r["name"]]}
+            "train": train_counts[r["name"]],
+            "roofline": roof_counts[r["name"]]}
     shapes = shape_rows(torch, ops, ref, data_t, q_t)
     for r in shapes:
         print(f"  {r['name']} at {r['shape']}: {r['ms']:.4f} ms, bound "

@@ -320,6 +320,12 @@ def search(index: FrozenIndex, queries, k: int, g: Guarantee = EXACT, *,
     return res
 
 
+def search_with_guarantee(index: FrozenIndex, queries, k: int,
+                          g: Guarantee, **kw) -> SearchResult:
+    """:func:`search` under the guarantee ``g`` (the reference's name)."""
+    return search(index, queries, k, g, **kw)
+
+
 def pad_mask(dead, n_rows: int, device) -> Optional[torch.Tensor]:
     """A tombstone mask (array or tensor, or None) as an [n_rows] bool
     tensor on ``device``, padded with False: ``ScoreCtx.dead[row_idx]``

@@ -10,6 +10,8 @@ The port's copy of ``src/repro/models/model.py``:
 * ``prefill``            — full-sequence forward filling a cache
 * ``decode_step``        — one-token step against the cache
 * ``decode_cache_specs`` — the cache's specs for a batch and a capacity
+* ``input_specs``        — the specs of every input of a (config, shape)
+                           cell, for the dry runs
 
 An encoder-decoder config's batch carries ``frames`` [B, F, d_model]
 beside its tokens; its decoder ends in its own ``dec_norm``, so the
@@ -24,7 +26,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.configs.base import LayerDesc, ModelConfig
+from repro_torch.configs.base import LayerDesc, ModelConfig, ShapeSpec
 
 from . import encdec as encdec_mod
 from . import transformer as tfm
@@ -34,7 +36,7 @@ from .params import ParamSpec, Params, initialize
 from .ssm import ssm_cache_shape
 
 __all__ = ["FIRST_LAYER", "Model", "alloc_cache", "decode_cache_specs",
-           "decode_step", "loss_fn", "model_specs", "prefill"]
+           "decode_step", "input_specs", "loss_fn", "model_specs", "prefill"]
 
 # deepseek-moe's layer 0: attention with a dense FF of its own width
 FIRST_LAYER = LayerDesc(kind="attn", ff="dense")
@@ -241,3 +243,40 @@ def decode_cache_specs(cfg: ModelConfig, batch: int, seq: int):
         cache["first_layer"] = tfm.sublayer_cache_spec(cfg, FIRST_LAYER,
                                                        batch, seq)
     return cache
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """ParamSpec tree of every model input for (cfg, shape), the
+    reference's: tokens and labels [B, S] for train, tokens for prefill
+    (with frames [B, F, d_model] for an encoder-decoder), and for decode
+    tokens [B, 1], the cache at capacity S and ``pos``. The port's
+    :func:`decode_step` takes ``pos`` as a Python int; its spec stays in
+    the tree, and the dry run passes ``shape.seq - 1``.
+
+    ``params.abstract`` turns it into ``meta`` tensors,
+    ``params.initialize`` into real ones."""
+    b, s = shape.batch, shape.seq
+
+    def tok(shp):
+        return ParamSpec(shp, ("batch", "seq"), dtype=torch.int32,
+                         init="zeros")
+
+    def frames():
+        return ParamSpec((b, cfg.encoder_frames, cfg.d_model),
+                         ("batch", "seq", "embed"), dtype=cfg.compute_dtype,
+                         init="normal", scale=1.0)
+
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": tok((b, s))}
+        if shape.kind == "train":
+            specs["labels"] = tok((b, s))
+        if cfg.is_encdec:
+            specs["frames"] = frames()
+        return specs
+    if shape.kind == "decode":
+        return {
+            "tokens": tok((b, 1)),
+            "cache": decode_cache_specs(cfg, b, s),
+            "pos": ParamSpec((), (), dtype=torch.int32, init="zeros"),
+        }
+    raise ValueError(shape.kind)

@@ -3,9 +3,10 @@
 The port's copy of the spec half of ``src/repro/models/params.py``. Every
 model declares its parameters as a tree (nested dicts) of
 :class:`ParamSpec` (shape, logical axis names, init rule). From that one
-declaration come the parameter count and bytes (no allocation) and
-:func:`initialize`, which draws every tensor on the device from one
-``torch.Generator``. The reference draws from jax keys, which torch
+declaration come the parameter count and bytes (no allocation),
+:func:`abstract` (``meta`` tensors of the specs' shapes and dtypes, for
+dry runs) and :func:`initialize`, which draws every tensor on the device
+from one ``torch.Generator``. The reference draws from jax keys, which torch
 cannot reproduce: parity with it carries the weights across
 (``repro_torch.models.convert``). Resolving the logical axes onto a mesh
 waits for the multi-GPU slice (ROADMAP Queue 1).
@@ -24,8 +25,9 @@ from repro_torch import device as device_mod
 
 Axis = Optional[str]
 
-__all__ = ["ParamSpec", "Params", "initialize", "is_spec", "param_bytes",
-           "param_count", "spec_leaves", "tree_map_specs", "unstack"]
+__all__ = ["ParamSpec", "Params", "abstract", "initialize", "is_spec",
+           "param_bytes", "param_count", "spec_leaves", "tree_map_specs",
+           "unstack"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +71,15 @@ def spec_leaves(tree, prefix: str = ""):
             yield from spec_leaves(tree[k], f"{prefix}{k}.")
     elif is_spec(tree):
         yield prefix[:-1], tree
+
+
+def abstract(tree):
+    """The spec tree as ``meta`` tensors of its shapes and dtypes: no
+    storage behind them, the counterpart of the reference's
+    ShapeDtypeStruct tree. ``Model(cfg, abstract(model_specs(cfg)))`` is
+    a full-size model that allocates nothing."""
+    return tree_map_specs(
+        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), tree)
 
 
 def param_count(tree) -> int:

@@ -12,7 +12,7 @@
 
 from .lockorder import LockOrderError, LockOrderRecorder
 from .metrics import (GROWTH, REGISTRY, Counter, Gauge, Histogram,
-                      MetricsRegistry)
+                      MetricsRegistry, registry)
 from .stats import OocStats
 from .trace import (NULL_SPAN, QueryProfile, Span, Tracer, chrome_events,
                     clear, disable, dump_chrome_trace, enable, enabled,
@@ -23,5 +23,5 @@ __all__ = [
     "LockOrderError", "LockOrderRecorder", "MetricsRegistry", "OocStats",
     "NULL_SPAN", "QueryProfile", "Span", "Tracer", "chrome_events",
     "clear", "disable", "dump_chrome_trace", "enable", "enabled",
-    "last_profile", "now", "profile", "span", "tracer",
+    "last_profile", "now", "profile", "registry", "span", "tracer",
 ]

@@ -220,6 +220,14 @@ class MetricsRegistry:
                 else m.value
         return out
 
+    def reset(self) -> None:
+        with self._lock:
+            self._metrics.clear()
+
 
 REGISTRY = MetricsRegistry()
+
+
+def registry() -> MetricsRegistry:
+    return REGISTRY
 

@@ -28,7 +28,7 @@ Field groups:
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Iterator, List
 
 
 @dataclasses.dataclass
@@ -72,11 +72,27 @@ class OocStats:
     # ---- engine cross-shard fold
     shards: List["OocStats"] = dataclasses.field(default_factory=list)
 
+    # the reference's mapping view: the fields by name
     def __getitem__(self, key: str):
         try:
             return getattr(self, key)
         except AttributeError:
             raise KeyError(key) from None
+
+    def get(self, key: str, default=None):
+        return getattr(self, key, default)
+
+    def __contains__(self, key) -> bool:
+        return isinstance(key, str) and hasattr(self, key)
+
+    def keys(self) -> List[str]:
+        return [f.name for f in dataclasses.fields(self)]
+
+    def items(self) -> list:
+        return [(k, getattr(self, k)) for k in self.keys()]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self.keys())
 
     def as_dict(self) -> dict:
         out = {f.name: getattr(self, f.name)

@@ -128,6 +128,9 @@ class CircuitBreaker:
             cooldown = self._state.get(key, [0, None])[1]
             return cooldown is None or cooldown.expired()
 
+    def is_open(self, key) -> bool:
+        return not self.allow(key)
+
     def record_success(self, key) -> None:
         with self._lock:
             old = self._state.pop(key, [0, None])[1]

@@ -111,6 +111,28 @@ def test_injector_counts_firings_and_training_contract():
 
 
 # ------------------------------------------------ policy/breaker units
+def test_circuit_breaker_is_open_matches_reference(hand_timers):
+    from repro.serve.fault import CircuitBreaker as JBreaker
+
+    key = (1, "copyB")
+    got, want = CircuitBreaker(threshold=2, cooldown_s=1000.0), \
+        JBreaker(threshold=2, cooldown_s=1000.0)
+    for step in ("fail", "fail", "fail", "ok", "fail"):
+        for br in (got, want):
+            if step == "fail":
+                br.record_failure(key)
+            else:
+                br.record_success(key)
+        assert got.is_open(key) == want.is_open(key), step
+        assert got.is_open(key) != got.allow(key)
+    assert not got.is_open((9, "never-failed"))
+    assert got.is_open(key) is False
+    got.record_failure(key)
+    assert got.is_open(key)
+    hand_timers[-1].fire()          # cooldown over: half-open
+    assert not got.is_open(key)
+
+
 def test_retry_policy_backoff_caps():
     p = RetryPolicy(backoff_base_s=0.01, backoff_cap_s=0.04)
     assert p.backoff_s(0) == 0.01

@@ -801,3 +801,53 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     for k, want in cpu.reference_leaves().items():
         torch.testing.assert_close(card.reference_leaves()[k].cpu(), want,
                                    atol=1e-6, rtol=1e-6, msg=k)
+
+
+def test_search_cell_measured_on_card(cuda):
+    """lower_search's measured half on a 4096-row DSTree: the profiler
+    sees the search's kernels, and the device is busy no longer than the
+    step takes."""
+    from repro_torch.launch import dryrun_search
+
+    data = randomwalk.generate(seed=11, n_series=4096, series_len=64)
+    idx = dstree.build(data, leaf_cap=64, device=cuda)
+    q = torch.as_tensor(queries.noisy_queries(data, 16, seed=11),
+                        device=cuda)
+    for coop in (False, True):
+        rep = dryrun_search.lower_search(
+            n_per_shard=4096, series_len=64, leaf_cap=64, batch=16, k=10,
+            nprobe=8, visit_batch=2, coop=coop, index=idx, queries=q)
+        assert rep["kernels"] > 0
+        assert 0 < rep["busy_seconds"] <= rep["measured_seconds"]
+        assert rep["roofline_share"] > 0 and rep["device"]
+        assert rep["search"]["loop_iterations"] >= 1
+
+
+def test_decode_cell_measured_on_card(cuda):
+    """A smoke-config decode step measured on the card and joined to its
+    dry-run report (meta) as phase 15 of chip_smoke.py joins them."""
+    from unittest import mock
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import model as M
+
+    cfg = configs.get_smoke_config("gemma2-2b")
+    with mock.patch.object(dryrun, "get_config", configs.get_smoke_config):
+        rep = dryrun.lower_cell("gemma2-2b", "decode_32k")
+    model = M.Model.init(cfg, 0, cuda)
+    cache = M.alloc_cache(cfg, 2, 64, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 1), device=cuda)
+
+    def step():
+        M.decode_step(model, toks, cache, 63, cfg)
+
+    with torch.no_grad():
+        measured = roofline.profile_device(step, 3, inputs=(toks,))
+    roofline.add_measured(rep, measured)
+    assert rep["kernels"] > 0
+    assert 0 < rep["busy_seconds"] <= rep["measured_seconds"]
+    assert rep["roofline_bound"] in ("compute", "memory")
+    assert rep["peak_bytes"] > 0
+    with pytest.raises(ValueError, match="on the card"):
+        roofline.profile_device(step, 1, inputs=(toks.cpu(),))

@@ -7,7 +7,9 @@ scripts/obs_smoke.py checks: a traced out-of-core query's span tree
 carries the OocStats the caller gets, with ``bytes_read`` equal to the
 cache and prefetcher counters exactly. The histogram's quantile is
 within one log bucket (GROWTH) of numpy's at the same rank convention
-(``method="lower"``) and inside [min, max]. CPU only, jax-free.
+(``method="lower"``) and inside [min, max]. The registry's reset and
+accessor and OocStats' mapping view against the reference's
+(``repro.obs``, which imports no jax). CPU only, jax-free.
 """
 
 import json
@@ -145,6 +147,45 @@ def test_chrome_events_structure(tmp_path, traced):
 
 
 # ----------------------------------------------------------- registry
+def test_registry_reset_and_accessor_match_reference():
+    from repro.obs import metrics as jmetrics
+
+    from repro_torch.obs import metrics as tmetrics
+
+    assert obs.registry() is obs.REGISTRY is tmetrics.registry()
+    snaps = []
+    for mod in (tmetrics, jmetrics):
+        assert mod.registry() is mod.REGISTRY
+        reg = mod.MetricsRegistry()
+        reg.counter("q.count", lane="eps").inc(3)
+        reg.gauge("q.depth").set(7)
+        reg.histogram("q.ms").record(2.5)
+        snap = reg.snapshot()
+        reg.reset()
+        assert reg.snapshot() == {} and reg.collect() == []
+        reg.counter("q.count", lane="eps").inc()
+        snaps.append((snap, reg.snapshot()))
+    (t_before, t_after), (j_before, j_after) = snaps
+    assert t_after == j_after == {"q.count{lane=eps}": 1}
+    assert {k: v for k, v in t_before.items() if k != "q.ms"} \
+        == {k: v for k, v in j_before.items() if k != "q.ms"}
+
+
+def test_ooc_stats_mapping_view_matches_reference():
+    from repro.obs.stats import OocStats as JStats
+
+    got, want = obs.OocStats(bytes_read=4096, hits=3), \
+        JStats(bytes_read=4096, hits=3)
+    assert got.keys() == want.keys()
+    assert list(got) == list(want) == got.keys()
+    assert got.items() == want.items()
+    for key in ("bytes_read", "hits", "effective_delta", "nope"):
+        assert got.get(key) == want.get(key)
+        assert got.get(key, 7) == want.get(key, 7)
+        assert (key in got) == (key in want)
+    assert (5 in got) == (5 in want) is False
+
+
 def test_registry_label_keying_and_kind_conflict():
     reg = MetricsRegistry()
     a = reg.counter("reads", shard="0", codec="pq")

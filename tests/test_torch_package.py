@@ -31,6 +31,12 @@ def test_port_imports_neither_jax_nor_the_reference(path):
         assert top not in ("jax", "jaxlib", "repro"), (path, mod)
 
 
+def test_the_walk_covers_the_launch_tooling():
+    walked = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for name in ("analytic", "roofline", "dryrun", "dryrun_search"):
+        assert f"src/repro_torch/launch/{name}.py" in walked, name
+
+
 def test_every_kernel_source_exports_its_bound_functions():
     from repro_torch.kernels import build
 

@@ -77,6 +77,20 @@ def test_search_matches_reference(built, walk_queries, gname, share):
     assert got.iterations >= 1 and got.lb_computed == index.num_leaves
 
 
+@pytest.mark.parametrize("gname", sorted(GUARANTEES))
+def test_search_with_guarantee_matches_reference(built, walk_queries,
+                                                 gname):
+    name, ref_index, index = built
+    jg, tg = GUARANTEES[gname]
+    want = jsearch.search_with_guarantee(
+        ref_index, jnp.asarray(walk_queries), K, jg,
+        visit_batch=VISIT[name])
+    got = search.search_with_guarantee(index, walk_queries, K, tg,
+                                       visit_batch=VISIT[name],
+                                       device="cpu")
+    assert_same_search(want, got)
+
+
 def test_brute_force_matches_reference(walk_data, walk_queries):
     want = jsearch.brute_force(jnp.asarray(walk_queries),
                                jnp.asarray(walk_data), K)
