@@ -221,7 +221,23 @@ Phases, each of which fails the run by raising:
      chip_smoke's own decode bound beside the analytic terms. Launch
      counts are zeroed before and read after; K1, K4 and lex_select must
      have run;
-  16. kernels at the main path's shapes: each kernel against its plain
+  16. the engine across ranks (core/engine.py's mesh mode, launch/mesh.py):
+     a world of one rank over NCCL on the card and a (1, 1) ("data",
+     "model") mesh; the main path's collection as a mesh engine (DSTree
+     at leaf_cap 256, an f32 spill) and as the one-card engine with
+     shards=1 from the same collection and seed. Rows exact, eps=1,
+     d=.99,eps=1, ng(4), ng(4)+share and exact+sync_bsf on both: ids,
+     distances, visit counts, lb_computed and iterations bit-equal, exact
+     rows brute force's ids (ties aside) from the phase's own brute force
+     (bit-equal to phase 5's); eps=1 out of core from the spill equal to
+     its resident row; one profiled ng(4)+sync_bsf query counts the
+     collectives (NCCL kernels on the card, c10d operations on the
+     host). Launch counts are zeroed before and read after, with brute
+     force and the one-card engine run uncounted beside the path; K1, K4
+     and lex_select must have run (K3 is not on the mesh path); the
+     mesh engine's kernel inputs are held against the plain versions.
+     The process group is destroyed after;
+  17. kernels at the main path's shapes: each kernel against its plain
      version, timed with CUDA events beside the plain version, one
      PyTorch library call where one computes the same function (for K3
      the cuBLAS expanded form; cdist beside it as ``cdist_ms``), and the
@@ -234,7 +250,8 @@ Phases, each of which fails the run by raising:
 
 Prints a ``{"serving": ...}`` line, an ``{"llm": ...}`` line, a
 ``{"families": ...}`` line, an ``{"encdec": ...}`` line, a ``{"train":
-...}`` line, a ``{"roofline": ...}`` line, a ``{"kernels": [...]}`` line,
+...}`` line, a ``{"roofline": ...}`` line, a ``{"mesh": ...}`` line, a
+``{"kernels": [...]}`` line,
 then
 ``{"ok": true, "device": ...}`` as its last line. Exits non-zero without a result when no CUDA device
 is present or the package is missing.
@@ -249,6 +266,7 @@ import os
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse
+import contextlib
 import json
 import shutil
 import sys
@@ -4052,6 +4070,217 @@ def phase_roofline(torch, S, data, data_t, path) -> dict:
             "total_memory": torch.cuda.get_device_properties(0).total_memory}
 
 
+# the engine across ranks (phase 16): MESH_ROWS name: (guarantee, sync_bsf,
+# share_gathers), each on the mesh engine and the one-card engine; the
+# out-of-core row repeats MESH_OOC_ROW from the spill; the profiled query
+MESH_LEAF_CAP = 256
+MESH_ROWS = {
+    "exact": ("exact", False, False),
+    "eps=1": ("eps", False, False),
+    "d=.99,eps=1": ("delta_eps", False, False),
+    "ng(4)": ("ng", False, False),
+    "ng(4)+share": ("ng", False, True),
+    "exact+sync": ("exact", True, False),
+}
+MESH_OOC_ROW = "eps=1"
+
+
+@contextlib.contextmanager
+def uncounted(wrappers):
+    """Launches inside do not count: the wrappers' counts are restored on
+    the way out. For comparators a phase runs beside its path."""
+    saved = {name: fn.launches for name, fn in wrappers.items()}
+    try:
+        yield
+    finally:
+        for name, fn in wrappers.items():
+            fn.launches = saved[name]
+
+
+def mesh_guarantee(G, name: str):
+    return {"exact": G.exact(), "eps": G.epsilon(1.0),
+            "delta_eps": G.delta_epsilon(0.99, 1.0), "ng": G.ng(4)}[name]
+
+
+def mesh_collectives(torch, fn) -> dict:
+    """The collectives one call of fn issues, from torch.profiler: NCCL
+    kernels on the card (count and device ms) and c10d operations on the
+    host (by name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, ms, ops = 0, 0.0, {}
+    for e in prof.events():
+        on_card = str(e.device_type).rsplit(".", 1)[-1] == "CUDA"
+        name = e.name
+        if on_card and "nccl" in name.lower():
+            kernels += 1
+            ms += e.time_range.elapsed_us() / 1e3
+        elif not on_card and name.startswith(("c10d::", "nccl:")):
+            ops[name] = ops.get(name, 0) + 1
+    return {"nccl_kernels": kernels, "nccl_kernel_ms": ms, "host_ops": ops}
+
+
+def phase_mesh(torch, S, G, data, data_t, q, truth, k, dist64, root: Path,
+               path) -> dict:
+    """Phase 16: the engine across ranks at world 1 over NCCL against the
+    one-card engine; returns the phase's rows and numbers. The process
+    group is destroyed before it returns or raises."""
+    import torch.distributed as dist
+
+    from repro_torch.core.engine import DistributedEngine
+    from repro_torch.core.metrics import workload_metrics
+    from repro_torch.core.spec import IndexSpec, StoreSpec
+    from repro_torch.kernels import ref
+    from repro_torch.launch import mesh as M
+
+    ispec = IndexSpec("dstree", leaf_cap=MESH_LEAF_CAP)
+    info, rows, times = {}, [], {}
+    eng = one = None
+    t0 = time.perf_counter()
+    dev = M.init_world("cuda")
+    try:
+        mesh = M.make_test_mesh((1, 1), ("data", "model"), device="cuda")
+        info.update(world=dist.get_world_size(), backend=dist.get_backend(),
+                    mesh=M.mesh_axis_sizes(mesh), device=str(dev),
+                    world_s=time.perf_counter() - t0)
+        if info["backend"] != "nccl":
+            raise AssertionError(f"mesh phase: the world runs "
+                                 f"{info['backend']}, not nccl")
+        # brute force and the one-card engine are comparators beside the
+        # mesh path: they run uncounted and unrecorded, so the counts and
+        # the held inputs are the mesh engine's alone
+        with uncounted(path.wrappers):
+            t0 = time.perf_counter()
+            bf = S.brute_force(q, data_t, k, device="cuda")
+            torch.cuda.synchronize()
+            times["brute_force"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            one = DistributedEngine(shards=1, device="cuda").build(
+                data, index=ispec)
+            torch.cuda.synchronize()
+            times["build_one_card"] = time.perf_counter() - t0
+        with path:
+            t0 = time.perf_counter()
+            eng = DistributedEngine(mesh=mesh, axes=("data",),
+                                    device="cuda").build(
+                data, index=ispec, store=StoreSpec(spill_dir=str(root)))
+            torch.cuda.synchronize()
+            times["build_mesh"] = time.perf_counter() - t0
+        if not (torch.equal(bf.ids, truth.ids)
+                and torch.equal(bf.dists, truth.dists)):
+            raise AssertionError("mesh phase: brute force differs from "
+                                 "phase 5's")
+        got = {}
+        for ri, (rname, (gname, sync, share)) in enumerate(MESH_ROWS.items()):
+            g = mesh_guarantee(G, gname)
+            pair = {}
+            # the two engines take turns at going first
+            order = (("mesh", eng), ("one_card", one))
+            for which, e in order[::-1] if ri % 2 else order:
+                with (path if which == "mesh"
+                      else uncounted(path.wrappers)):
+                    t0 = time.perf_counter()
+                    res = e.query(q, k, g, sync_bsf=sync, share_gathers=share)
+                    torch.cuda.synchronize()
+                    pair[which] = (res, time.perf_counter() - t0)
+            (a, sec), (b, sec1) = pair["mesh"], pair["one_card"]
+            what = f"mesh {rname}"
+            for x, y, field in zip(a[:4], b[:4], ("dists", "ids", "leaves",
+                                                   "rows")):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{what}: {field} differ from the "
+                                         "one-card engine's")
+            if (a.lb_computed, a.iterations) != (b.lb_computed, b.iterations):
+                raise AssertionError(f"{what}: lb_computed or iterations "
+                                     "differ from the one-card engine's")
+            if a.dists.shape != (q.shape[0], k) or not bool(
+                    torch.isfinite(a.dists[:, 0]).all()):
+                raise AssertionError(f"{what}: wrong shape or no finite "
+                                     "nearest neighbour")
+            m = workload_metrics(a.ids, a.dists, truth.ids, truth.dists)
+            swaps = None
+            if gname == "exact":
+                if f"{m['map']:.3f}" != "1.000":
+                    raise AssertionError(f"{what}: MAP {m['map']} on an "
+                                         "exact row")
+                swaps = ties_only(torch, a.ids, truth.ids, dist64, what)
+            got[rname] = a
+            rows.append(dict(row=rname, map=m["map"], recall=m["avg_recall"],
+                             mre=m["mre"], leaves=float(
+                                 a.leaves_visited.float().mean()),
+                             iterations=a.iterations[0], ms=sec * 1e3,
+                             one_card_ms=sec1 * 1e3, swaps=swaps))
+            print(f"  mesh {rname}: {sec:.2f} s (one card {sec1:.2f} s), "
+                  f"{a.iterations[0]} iterations, bit-equal")
+        with path:
+            t0 = time.perf_counter()
+            ooc = eng.query(q, k, mesh_guarantee(
+                G, MESH_ROWS[MESH_OOC_ROW][0]), ooc=True)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        # ids at bit-equal distances may come in another order: the
+        # resident merge keeps the shards' order among equal distances, the
+        # out-of-core fold orders them by id (as the reference's two do)
+        want = got[MESH_OOC_ROW]
+        tied = int((ooc.ids != want.ids).sum())
+        for x, y, field in zip(
+                (ooc.dists, ooc.ids.gather(1, ref.lex_order(ooc.dists,
+                                                            ooc.ids)),
+                 ooc.leaves_visited, ooc.rows_scanned),
+                (want.dists, want.ids.gather(1, ref.lex_order(want.dists,
+                                                              want.ids)),
+                 want.leaves_visited, want.rows_scanned),
+                ("dists", "ids", "leaves", "rows")):
+            if not torch.equal(x, y):
+                raise AssertionError(f"mesh {MESH_OOC_ROW} out of core: "
+                                     f"{field} differ from the resident "
+                                     "row's")
+        st = ooc.stats
+        same = next(r for r in rows if r["row"] == MESH_OOC_ROW)
+        rows.append(dict(row=f"{MESH_OOC_ROW} ooc", map=same["map"],
+                         recall=same["recall"], mre=same["mre"],
+                         leaves=float(ooc.leaves_visited.float().mean()),
+                         iterations=ooc.iterations[0], ms=sec * 1e3,
+                         one_card_ms=None, swaps=tied,
+                         bytes_read=st.bytes_read, hit_rate=st.hit_rate))
+        print(f"  mesh {MESH_OOC_ROW} out of core: {sec:.2f} s, "
+              f"{st.bytes_read / 1e9:.2f} GB read, equal to resident "
+              f"({tied} ids in another order among equal distances)")
+        info["held"] = len(path.check("mesh"))
+
+        def profiled():
+            eng.query(q, k, G.ng(4), sync_bsf=True)
+
+        profiled()
+        info["collectives"] = mesh_collectives(torch, profiled)
+        info.update(times)
+        info["rows"] = rows
+        return info
+    finally:
+        for e in (eng, one):
+            if e is not None:
+                e.close()
+        del eng, one
+        shutil.rmtree(root, ignore_errors=True)
+        M.destroy_world()
+
+
+def print_mesh_table(rows) -> None:
+    hdr = (f"{'row':13s} {'MAP':>6s} {'recall':>7s} {'MRE':>7s} "
+           f"{'leaves':>7s} {'iters':>6s} {'ms':>9s} {'one-card ms':>11s}")
+    print(hdr)
+    print("-" * len(hdr))
+    for r in rows:
+        one = "" if r["one_card_ms"] is None else f"{r['one_card_ms']:11.1f}"
+        print(f"{r['row']:13s} {r['map']:6.3f} {r['recall']:7.3f} "
+              f"{r['mre']:7.4f} {r['leaves']:7.0f} {r['iterations']:6d} "
+              f"{r['ms']:9.1f} {one}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-series", type=int, default=1 << 20)
@@ -4402,6 +4631,36 @@ def main() -> int:
                              f"{missing}")
     print(json.dumps({"roofline": dict(roof_info, seconds=roof_s)}))
 
+    # the engine across ranks, at world 1 over NCCL, with its own counts
+    torch.cuda.empty_cache()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    mesh_info = phase_mesh(torch, S, G, data, data_t, q, truth, k, dist64,
+                           root / "mesh", PathInputs(torch, ops, ref,
+                                                     wrappers))
+    mesh_counts = {name: fn.launches for name, fn in wrappers.items()}
+    mesh_s = time.perf_counter() - t0
+    col = mesh_info["collectives"]
+    print(f"engine across ranks ({mesh_s:.1f} s; world "
+          f"{mesh_info['world']} over {mesh_info['backend']}, mesh "
+          f"{mesh_info['mesh']}; builds mesh {mesh_info['build_mesh']:.1f} s, "
+          f"one card {mesh_info['build_one_card']:.1f} s; every row bit-equal "
+          f"to the one-card engine; {mesh_info['held']} kernel inputs held "
+          f"against the plain versions; one ng(4)+sync query: "
+          f"{col['nccl_kernels']} NCCL kernels, {col['nccl_kernel_ms']:.3f} "
+          f"ms, host {col['host_ops']}):")
+    print_mesh_table(mesh_info["rows"])
+    print(f"launches on the mesh path: {mesh_counts}")
+    # K3 (l2) is not on the mesh path: the DSTree engine never calls it,
+    # and brute force, the phase's comparator, runs uncounted
+    missing = [name for name in ("box_mindist", "coop_score_select",
+                                 "lex_select") if mesh_counts[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the mesh path: "
+                             f"{missing}")
+    print(json.dumps({"mesh": dict(mesh_info, seconds=mesh_s)}))
+
     rows = kernel_rows(torch, ops, ref, build, data_t, q_t, built["isax2+"],
                        built["va+file"], k, counts, pq_in)
     for r in rows:
@@ -4416,7 +4675,8 @@ def main() -> int:
             "families": fam_counts[r["name"]],
             "encdec": enc_counts[r["name"]],
             "train": train_counts[r["name"]],
-            "roofline": roof_counts[r["name"]]}
+            "roofline": roof_counts[r["name"]],
+            "mesh": mesh_counts[r["name"]]}
     shapes = shape_rows(torch, ops, ref, data_t, q_t)
     for r in shapes:
         print(f"  {r['name']} at {r['shape']}: {r['ms']:.4f} ms, bound "

@@ -1,11 +1,12 @@
 """DistributedEngine: the paper's methods over a range-sharded collection.
 
-The port of ``src/repro/core/engine.py`` for one card: S shards live on
-one device, with no mesh. Each shard owns a FrozenIndex over its rows
-(ids stay global) plus the global distance histogram and the global N,
-so every shard's r_delta has the single-index semantics. A query batch
-goes to every shard, each runs Algorithm 2 over its rows, and the
-per-shard top-k rows are merged.
+The port of ``src/repro/core/engine.py``. Each shard owns a FrozenIndex
+over its rows (ids stay global) plus the global distance histogram and
+the global N, so every shard's r_delta has the single-index semantics. A
+query batch goes to every shard, each runs Algorithm 2 over its rows,
+and the per-shard top-k rows are merged. The shards live either on one
+device (``shards=S``, no mesh) or one on each rank of a mesh
+(``mesh=..., axes=...``; see "Across ranks" below).
 
 Guarantees survive the sharding: every global r-th neighbour lies in
 some shard where it ranks <= r; that shard's guarantee bounds its
@@ -57,6 +58,26 @@ rows. Compaction freezes the memtable into an on-disk segment
 a daemon thread (``StoreSpec.auto_compact``) that polls with
 ``Event.wait``.
 
+Across ranks (``DistributedEngine(mesh=..., axes=("data",))``, the
+reference's shard_map engine over ``torch.distributed``): the shard
+count is the product of the mesh's sizes over ``axes``, and a rank's
+shard is its coordinates along them flattened row-major
+(core/ranks.shard_layout). Ranks that differ only off those axes (along
+``model``) hold the same shard and give the same answer; every
+collective runs over the shard group, the ranks that share this rank's
+other coordinates, so no shard is counted twice. Every rank calls every
+method with the same arguments (SPMD): the build (each rank builds only
+its shard, against rank 0's histogram, padded to the widest shard; the
+writer copy alone spills it), queries and writes (each rank keeps its
+own copy of the write tier and compacts into its own writer directory).
+A resident query runs the rank's shard, with ``sync_bsf`` one
+all_reduce(MIN) a step for the kth-best over the group and whether any
+shard still steps; then one all_gather brings every shard's answer and
+counts, merged as one card merges its shards. Out of core, each rank
+serves its shard with failover, and the answers and OocStats are
+gathered and folded in shard order. Collectives run where the engine
+runs: NCCL on the card, gloo on the CPU; a failed one raises.
+
 With tracing on (``repro_torch.obs``) a query is an ``engine.query``
 span (``path`` resident, resident+delta or ooc; a traced resident query
 reads its visit totals back, which waits for the device); out of core it
@@ -77,19 +98,20 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import device as device_mod
 from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.obs import REGISTRY, OocStats
 
-from . import refine
+from . import ranks, refine
 from .guarantees import (EXACT, Guarantee, effective_delta_after_loss,
                          joint_n_total)
 from .histogram import DEFAULT_SEED, build_histogram
 from .index import FrozenIndex
 from .indexes import dstree, isax, vafile
-from .search import Refinement, pad_mask, search_impl
+from .search import Refinement, SearchResult, pad_mask, search_impl
 from .spec import IndexSpec, StoreSpec
 
 
@@ -172,6 +194,67 @@ def _pad_shard(idx: FrozenIndex, n_leaves: int,
         row_norms=_pad_to(idx.row_norms, n_rows, 0.0))
 
 
+def _group_min_bsf(lay, bsf: torch.Tensor, going: bool) -> tuple:
+    """(the kth-best [B] over every shard of the group, whether any of
+    them stepped): the reference's pmin of the kth-best and pmax of
+    ``go`` in one all_reduce(MIN), the flag as 0 for a rank that
+    stepped. A step in which no shard stepped changes nothing, so the
+    loop may end one collective after the reference's."""
+    v = torch.cat([bsf, torch.full((1,), 0.0 if going else 1.0,
+                                   dtype=bsf.dtype, device=bsf.device)])
+    dist.all_reduce(v, op=dist.ReduceOp.MIN, group=lay.group)
+    return v[:-1], float(v[-1]) == 0.0
+
+
+def _gather_results(lay, res: SearchResult) -> list:
+    """Every shard's SearchResult in shard order, from one all_gather
+    over the shard group: the distances (their f32 bits), ids, visit
+    counts, lb_computed and iterations travel as one int32 tensor."""
+    b, k = res.ids.shape
+    dev = res.ids.device
+    mine = torch.cat([
+        res.dists.float().contiguous().view(torch.int32).reshape(-1),
+        res.ids.to(torch.int32).reshape(-1),
+        res.leaves_visited.to(torch.int32), res.rows_scanned.to(torch.int32),
+        torch.tensor([res.lb_computed, res.iterations], dtype=torch.int32,
+                     device=dev)])
+    parts = [torch.empty_like(mine) for _ in lay.shard_of]
+    dist.all_gather(parts, mine, group=lay.group)
+    tails = torch.stack([p[-2:] for p in parts]).tolist()
+    out = [None] * lay.count
+    for p, (lb, iters), si in zip(parts, tails, lay.shard_of):
+        d, i, lv, rs, _ = p.split([b * k, b * k, b, b, 2])
+        out[si] = SearchResult(d.view(torch.float32).reshape(b, k),
+                               i.reshape(b, k), lv, rs, lb, iters)
+    return out
+
+
+def _gather_served(lay, mine, b: int, k: int, dev) -> dict:
+    """Every shard's (OocResult, ShardServeInfo) by shard, None for a
+    shard lost past its copies: the answers through
+    :func:`_gather_results`, the stats and serve infos through one
+    all_gather_object."""
+    from repro_torch.store.ooc import OocResult
+
+    if mine is None:  # lost: a placeholder answer, dropped from the fold
+        res = SearchResult(torch.full((b, k), float("inf"), device=dev),
+                           torch.full((b, k), -1, dtype=torch.int32,
+                                      device=dev),
+                           torch.zeros(b, dtype=torch.int32, device=dev),
+                           torch.zeros(b, dtype=torch.int32, device=dev), 0, 0)
+        meta = None
+    else:
+        res, meta = mine[0].result, (mine[0].stats, mine[1])
+    results = _gather_results(lay, res)
+    metas = [None] * len(lay.shard_of)
+    dist.all_gather_object(metas, meta, group=lay.group)
+    out = {}
+    for m, si in zip(metas, lay.shard_of):
+        out[si] = None if m is None else (
+            OocResult(results[si], m[0]), m[1])
+    return out
+
+
 def _discover_replicas(spill_dir: str, shard_dirs: Tuple[str, ...]
                        ) -> Tuple[Tuple[str, ...], ...]:
     """Per shard: (primary, *replica copies) found on disk. Replicas live
@@ -196,6 +279,10 @@ class DistributedEngine:
     shards: Optional[int] = None  # None: the count of spilled shards
     method: str = "dstree"
     device: object = device_mod.DEFAULT
+    # a torch DeviceMesh (launch/mesh.py): one shard per rank over
+    # ``axes``; ``shards`` is then ignored. The device must be the mesh's
+    mesh: Optional[object] = None
+    axes: Tuple[str, ...] = ("data",)
     # the resident shards, padded to one shape (build with keep_resident)
     resident: Optional[Tuple[FrozenIndex, ...]] = None
     shard_dirs: Optional[Tuple[str, ...]] = None  # spilled store dirs
@@ -253,9 +340,25 @@ class DistributedEngine:
         default_factory=dict, repr=False, compare=False)
     _dead_dev: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
+    # this rank's core/ranks.ShardLayout on a mesh engine, else None
+    _layout: Optional[object] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.mesh is None:
+            return
+        dev = device_mod.resolve(self.device)
+        if dev.type != self.mesh.device_type:
+            raise ValueError(f"the mesh runs on {self.mesh.device_type}, the "
+                             f"engine was asked to run on {dev}")
+        self.device = ranks.rank_device(dev)
+        self.axes = tuple(self.axes)
+        self._layout = ranks.shard_layout(self.mesh, self.axes)
 
     @property
     def n_shards(self) -> int:
+        if self._layout is not None:
+            return self._layout.count
         if self.shards is not None:
             return int(self.shards)
         return len(self.shard_dirs) if self.shard_dirs else 1
@@ -300,7 +403,14 @@ class DistributedEngine:
         store (spill_dir/shard_NNNN, in ``codec``) and ``replicas - 1``
         byte-identical copies under spill_dir/replicas/rN/;
         ``keep_resident=False`` keeps only the stores. The write tier of a
-        previous build is dropped with its rows."""
+        previous build is dropped with its rows.
+
+        On a mesh every rank calls it with the same rows: each builds its
+        own shard, against the histogram of rank 0 (every rank draws the
+        same sample; the broadcast makes the bytes equal), padded to the
+        widest shard of the mesh; a shard is spilled by its writer rank,
+        and after a barrier every rank's ``shard_dirs`` lists every
+        shard."""
         ispec = index or IndexSpec(method=self.method)
         sspec = (store or StoreSpec()).validate()
         dev = device_mod.resolve(self.device)
@@ -315,23 +425,28 @@ class DistributedEngine:
         self.index_spec, self.store_spec = ispec, sspec
         n = data.shape[0]
         s = self.n_shards
+        lay = self._layout
         bounds = np.linspace(0, n, s + 1).astype(np.int64)
         sample = data[np.random.default_rng(0).choice(
             n, min(n, 100_000), replace=False)]
         hist = build_histogram(sample, seed, device=dev)  # global
+        if lay is not None:
+            for t in hist:
+                dist.broadcast(t, src=0)
         builder = _BUILDERS[ispec.method]
+        write = sspec.spill_dir is not None and (lay is None or lay.writer)
 
-        shards, spilled = [], []
-        for si in range(s):
+        shards = []
+        for si in range(s) if lay is None else (lay.index,):
             lo, hi = int(bounds[si]), int(bounds[si + 1])
             idx = builder(data[lo:hi], hist=hist, seed=seed, device=dev,
                           **ispec.build_params)
             ids = torch.where(idx.ids >= 0, idx.ids + lo, -1)
             idx = dataclasses.replace(idx, ids=ids.to(torch.int32),
                                       n_total=n)
-            if sspec.spill_dir is not None:
-                d = os.path.join(sspec.spill_dir, f"shard_{si:04d}")
-                spilled.append(idx.save(d, codec=sspec.codec))
+            if write:
+                d = idx.save(os.path.join(sspec.spill_dir, f"shard_{si:04d}"),
+                             codec=sspec.codec)
                 # replicas are file copies of the saved store (same ids,
                 # histogram and pq codebook), under replicas/rN so that
                 # open_spill cannot take them for more shards
@@ -340,17 +455,27 @@ class DistributedEngine:
                                       f"r{rep}", f"shard_{si:04d}")
                     if os.path.isdir(rd):
                         shutil.rmtree(rd)
-                    shutil.copytree(spilled[-1], rd)
+                    shutil.copytree(d, rd)
             if sspec.keep_resident:
                 shards.append(idx)
             del idx
-        self.shard_dirs = tuple(spilled) or None
-        self.shard_replica_dirs = _discover_replicas(
-            sspec.spill_dir, self.shard_dirs) if spilled else None
+        self.shard_dirs = self.shard_replica_dirs = None
+        if sspec.spill_dir is not None:
+            if lay is not None:
+                dist.barrier()  # every writer has saved its shard
+            self.shard_dirs = tuple(
+                os.path.join(sspec.spill_dir, f"shard_{si:04d}")
+                for si in range(s))
+            self.shard_replica_dirs = _discover_replicas(sspec.spill_dir,
+                                                         self.shard_dirs)
         self.resident = None
         if shards:
             n_leaves = max(sh.num_leaves for sh in shards)
             n_rows = max(sh.data.shape[0] for sh in shards)
+            if lay is not None:
+                wide = torch.tensor([n_leaves, n_rows], device=dev)
+                dist.all_reduce(wide, op=dist.ReduceOp.MAX)
+                n_leaves, n_rows = wide.tolist()
             self.resident = tuple(_pad_shard(sh, n_leaves, n_rows)
                                   for sh in shards)
         return self
@@ -674,7 +799,7 @@ class DistributedEngine:
             delta_rows=mut.snap.live_rows, segments=len(mut.snap.segments))
         with obs.span("engine.query",
                       path="resident" if mut is None else "resident+delta",
-                      lanes=len(queries), k=k, shards=len(self.resident),
+                      lanes=len(queries), k=k, shards=self.n_shards,
                       **attrs) as sp:
             out = self._query_resident(queries, k, g, visit_batch, sync_bsf,
                                        share_gathers, mut)
@@ -686,13 +811,14 @@ class DistributedEngine:
                         visit_batch: int, sync_bsf: bool,
                         share_gathers: bool,
                         mut: Optional[_MutView] = None) -> QueryResult:
-        """Algorithm 2 on every resident shard, then the reference's
-        merge: the [S, B, k] answers laid out shard-major as [B, S*k],
-        sorted by distance with ties in position order, cut to k. With
-        the write tier, each shard masks its tombstoned rows (a device
-        mask per shard, padded to its padded rows and kept until the kill
-        set moves), r_delta uses the joint N, and the segments and the
-        memtable are folded in after."""
+        """Algorithm 2 on every resident shard (on a mesh, the rank's
+        own; the others' answers come from one all_gather), then the
+        reference's merge: the [S, B, k] answers laid out shard-major as
+        [B, S*k], sorted by distance with ties in position order, cut to
+        k. With the write tier, each shard masks its tombstoned rows (a
+        device mask per shard, padded to its padded rows and kept until
+        the kill set moves), r_delta uses the joint N, and the segments
+        and the memtable are folded in after."""
         dev = self.resident[0].device
         q = torch.as_tensor(queries, device=dev)
         dead = [None] * len(self.resident)
@@ -710,15 +836,22 @@ class DistributedEngine:
                            nprobe=g.nprobe, visit_batch=visit_batch,
                            share_gathers=share_gathers, n_override=n_over)
                 for si, idx in enumerate(self.resident)]
+        lay = self._layout
         if sync_bsf:
             # lockstep: after each step every lane stops against the
             # kth-best over all shards, which is no larger than its own,
             # so the answer is the same and the visits can only fall
-            while any(r.go for r in runs):
+            while True:
                 live = [r for r in runs if r.go]
                 for r in live:
                     r.advance()
                 bsf = torch.stack([r.bsf for r in runs]).amin(0)
+                if lay is not None:
+                    bsf, stepped = _group_min_bsf(lay, bsf, bool(live))
+                    if not stepped:
+                        break
+                elif not live:
+                    break
                 for r in live:
                     r.settle(bsf)
         else:
@@ -726,6 +859,8 @@ class DistributedEngine:
                 while r.go:
                     r.step()
         res = [r.finish() for r in runs]
+        if lay is not None:
+            res = _gather_results(lay, res[0])
         b = q.shape[0]
         md = torch.stack([r.dists for r in res], 1).reshape(b, -1)
         mi = torch.stack([r.ids for r in res], 1).reshape(b, -1)
@@ -826,16 +961,16 @@ class DistributedEngine:
     def _query_ooc(self, queries, k: int, g: Guarantee, visit_batch: int,
                    opts: dict, mut: Optional[_MutView] = None
                    ) -> QueryResult:
-        """Serve the batch from the spilled stores: shard after shard,
-        the search loop runs over its store under
-        serve_shard_with_failover, and each answer is folded as it
-        lands. Per shard the answer is the
-        resident search's bit for bit on a lossless codec, and both
-        merges select the k smallest distances. With the write tier, each
-        attempt masks the shard's tombstoned rows (one mask per shard,
-        shared by its byte-identical copies, padded to the store's padded
-        rows) and r_delta uses the joint N; the segments and the memtable
-        are folded in after the shards."""
+        """Serve the batch from the spilled stores: shard after shard
+        (on a mesh, each rank its own, the answers then gathered), the
+        search loop runs over its store under serve_shard_with_failover,
+        and the answers are folded in shard order. Per shard the answer
+        is the resident search's bit for bit on a lossless codec, and
+        both merges select the k smallest distances. With the write tier,
+        each attempt masks the shard's tombstoned rows (one mask per
+        shard, shared by its byte-identical copies, padded to the store's
+        padded rows) and r_delta uses the joint N; the segments and the
+        memtable are folded in after the shards."""
         from repro_torch.serve import fault as sfault
         from repro_torch.store import search_ooc
 
@@ -898,23 +1033,32 @@ class DistributedEngine:
             lbs = 0
             iters = [0] * n_sh
             per_shard, infos, lost = [], [], []
-            for si in range(n_sh):
+            served = {}
+            lay = self._layout
+            for si in range(n_sh) if lay is None else (lay.index,):
                 copies = replica_dirs[si]
                 # round-robin ownership: shard si's owner is copy si % R, and
                 # failover walks the other copies in order
                 order = tuple(copies[(si + j) % len(copies)]
                               for j in range(len(copies)))
                 try:
-                    out, info = sfault.serve_shard_with_failover(
+                    out, info = served[si] = sfault.serve_shard_with_failover(
                         attempt, shard=si, replica_dirs=order, policy=policy,
                         breaker=breaker, injector=injector)
                 except sfault.ShardLost:
-                    lost.append(si)
+                    served[si] = None
                     continue
                 out.stats.retries = info.retries
                 out.stats.failovers = info.failovers
                 REGISTRY.counter("engine.shard.bytes_read", shard=str(si)).inc(
                     out.stats.bytes_read)
+            if lay is not None:
+                served = _gather_served(lay, served[lay.index], b, k, dev)
+            for si in range(n_sh):
+                if served[si] is None:
+                    lost.append(si)
+                    continue
+                out, info = served[si]
                 r = out.result
                 # ids are disjoint across shards: the unique merge is used for
                 # its (d, id)-lex selection
