@@ -237,7 +237,21 @@ Phases, each of which fails the run by raising:
      and lex_select must have run (K3 is not on the mesh path); the
      mesh engine's kernel inputs are held against the plain versions.
      The process group is destroyed after;
-  17. kernels at the main path's shapes: each kernel against its plain
+  17. training across ranks (launch/sharding.py, models/sharding_utils.py,
+     the train step on DTensors): a world of one rank over NCCL and a
+     (1, 1) ("data", "model") mesh; gemma2-2b at full width and depth in
+     bf16 (seed 24) through ``fit(mesh=)`` for 2 steps of 1 x 2048 tokens,
+     every parameter and moment a DTensor laid out by the rules, then,
+     with the mesh run's model and moments freed and its parameters kept
+     on the host, the one-card ``fit`` from the same seed, with
+     deterministic algorithms on for both: each step's loss and time, the
+     largest difference of each parameter leaf (TRAIN_MESH_*; bit-equal
+     expected at world 1) and the collectives of one more profiled mesh
+     step; then ``compressed_psum`` over a full-width gradient leaf,
+     bit-equal to the local quantize-dequantize at world 1. No kernel of
+     the port lies on this path (launch counts all 0). The process group
+     is destroyed after;
+  18. kernels at the main path's shapes: each kernel against its plain
      version, timed with CUDA events beside the plain version, one
      PyTorch library call where one computes the same function (for K3
      the cuBLAS expanded form; cdist beside it as ``cdist_ms``), and the
@@ -248,11 +262,11 @@ Phases, each of which fails the run by raising:
      the HNSW build's block, lex_select at kk = 1200 and 4096 and K1 at
      D = 64 are timed too.
 
-Prints a ``{"serving": ...}`` line, an ``{"llm": ...}`` line, a
-``{"families": ...}`` line, an ``{"encdec": ...}`` line, a ``{"train":
-...}`` line, a ``{"roofline": ...}`` line, a ``{"mesh": ...}`` line, a
-``{"kernels": [...]}`` line,
-then
+Each phase's wall seconds are printed on a line of their own (``phase N
+name: S s``). Prints a ``{"serving": ...}`` line, an ``{"llm": ...}``
+line, a ``{"families": ...}`` line, an ``{"encdec": ...}`` line, a
+``{"train": ...}`` line, a ``{"roofline": ...}`` line, a ``{"mesh": ...}``
+line, a ``{"train_mesh": ...}`` line, a ``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": ...}`` as its last line. Exits non-zero without a result when no CUDA device
 is present or the package is missing.
 """
@@ -4105,14 +4119,16 @@ def mesh_guarantee(G, name: str):
 def mesh_collectives(torch, fn) -> dict:
     """The collectives one call of fn issues, from torch.profiler: NCCL
     kernels on the card (count and device ms) and c10d operations on the
-    host (by name)."""
+    host (by name); and the aten calls on the host, all of them and the
+    outermost (those that no other aten call made: the calls the program
+    and autograd dispatch, a DTensor's local calls nested below them)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels, ms, ops = 0, 0.0, {}
+    kernels, ms, ops, aten, outer = 0, 0.0, {}, 0, 0
     for e in prof.events():
         on_card = str(e.device_type).rsplit(".", 1)[-1] == "CUDA"
         name = e.name
@@ -4121,7 +4137,14 @@ def mesh_collectives(torch, fn) -> dict:
             ms += e.time_range.elapsed_us() / 1e3
         elif not on_card and name.startswith(("c10d::", "nccl:")):
             ops[name] = ops.get(name, 0) + 1
-    return {"nccl_kernels": kernels, "nccl_kernel_ms": ms, "host_ops": ops}
+        if not on_card and name.startswith("aten::"):
+            aten += 1
+            up = e.cpu_parent
+            while up is not None and not up.name.startswith("aten::"):
+                up = up.cpu_parent
+            outer += up is None
+    return {"nccl_kernels": kernels, "nccl_kernel_ms": ms, "host_ops": ops,
+            "aten_calls": aten, "outer_aten_calls": outer}
 
 
 def phase_mesh(torch, S, G, data, data_t, q, truth, k, dist64, root: Path,
@@ -4281,11 +4304,203 @@ def print_mesh_table(rows) -> None:
               f"{r['ms']:9.1f} {one}")
 
 
+# the train-across-ranks phase (17): TRAIN_MESH_ARCH at full width and
+# depth in bf16, weights from TRAIN_MESH_SEED, through fit(mesh=) on a
+# (1, 1) ("data", "model") mesh over NCCL at world 1, then the one-card
+# fit from the same seed, with torch.use_deterministic_algorithms on for
+# both; losses at TRAIN_MESH_LOSS_RTOL and each parameter leaf at
+# TRAIN_MESH_PARAM_TOL times its largest magnitude (one bf16 step), and
+# then bit for bit, required (at world 1 every placement replicates and
+# the collectives move nothing; the leaves and losses that differ are
+# named); then
+# compressed_psum over TRAIN_MESH_LEAF's full-width gradient, bit-equal to
+# the local quantize-dequantize at world 1
+TRAIN_MESH_ARCH, TRAIN_MESH_SEED = "gemma2-2b", 24
+TRAIN_MESH_STEPS, TRAIN_MESH_BATCH, TRAIN_MESH_SEQ = 2, 1, 2048
+TRAIN_MESH_LOSS_RTOL, TRAIN_MESH_PARAM_TOL = 1e-5, 2.0 ** -8
+TRAIN_MESH_LEAF = "blocks.sub0.mlp.wi_gate"
+
+
+@contextlib.contextmanager
+def timed_steps(torch, times: list):
+    """Every train step that launch/train.fit builds inside, timed on its
+    own (synchronized before and after) into ``times``."""
+    from repro_torch.launch import train as T
+
+    real = T.build_train_step
+
+    def build(*args, **kw):
+        fn = real(*args, **kw)
+
+        def step(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+
+        return step
+
+    T.build_train_step = build
+    try:
+        yield
+    finally:
+        T.build_train_step = real
+
+
+def phase_train_mesh(torch) -> dict:
+    """Phase 17: training across ranks at world 1 over NCCL against the
+    one-card fit. The process group is destroyed before it returns or
+    raises."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batch_at_step
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.train import batch_rows, fit
+    from repro_torch.models.sharding_utils import use_mesh
+    from repro_torch.train import compress as C
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_step import build_train_step, loss_and_grads
+
+    cfg = get_config(TRAIN_MESH_ARCH)
+    b, s, steps = TRAIN_MESH_BATCH, TRAIN_MESH_SEQ, TRAIN_MESH_STEPS
+    kw = dict(steps=steps, batch=b, seq=s, seed=TRAIN_MESH_SEED,
+              device="cuda")
+    info = dict(config=cfg.name, layers=cfg.num_layers, batch=b, seq=s,
+                steps=steps, params=cfg.param_count())
+    saved = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    t0 = time.perf_counter()
+    M.init_world("cuda")
+    try:
+        mesh = M.make_mesh((1, 1), ("data", "model"), "cuda")
+        info.update(world=dist.get_world_size(), backend=dist.get_backend(),
+                    mesh=M.mesh_axis_sizes(mesh),
+                    world_s=time.perf_counter() - t0)
+        if info["backend"] != "nccl":
+            raise AssertionError(f"train mesh: the world runs "
+                                 f"{info['backend']}, not nccl")
+        times = []
+        t0 = time.perf_counter()
+        with timed_steps(torch, times):
+            got = fit(cfg, mesh=mesh, **kw)
+        info["mesh_fit_s"] = time.perf_counter() - t0
+        info["mesh_step_s"] = times
+        leaves = got["params"].reference_leaves()
+        want = SH.by_path(SH.param_shardings(cfg, mesh))
+        bad = [k for k, v in leaves.items() if not isinstance(v, DTensor)
+               or tuple(v.placements) != want[k]]
+        bad += [k for k, v in got["opt_state"].mu.items()
+                if tuple(v.placements) != want[k]]
+        if bad:
+            raise AssertionError(f"train mesh: leaves not laid out by the "
+                                 f"rules: {bad[:5]}")
+        host = {k: v.to_local().to("cpu", copy=True)
+                for k, v in leaves.items()}
+        mesh_losses = list(got["losses"])
+        # one more step on the mesh, profiled for its collectives (the
+        # parameters it leaves are not compared)
+        ocfg = O.OptConfig(lr=1e-3, warmup_steps=min(20, steps // 5 + 1),
+                           total_steps=steps)
+        step_fn = build_train_step(cfg, ocfg)
+        start, rows, pl = batch_rows(mesh, b)
+        batch = batch_at_step(TRAIN_MESH_SEED, steps, b, s, cfg.vocab_size,
+                              row_start=start, row_count=rows)
+        dbatch = {k: DTensor.from_local(v.cuda(), mesh, pl)
+                  for k, v in batch.items()}
+
+        def one_step():
+            with use_mesh(mesh):
+                step_fn(got["params"], got["opt_state"], dbatch)
+
+        info["collectives"] = mesh_collectives(torch, one_step)
+        del got, leaves, step_fn, dbatch
+        torch.cuda.empty_cache()
+
+        times = []
+        t0 = time.perf_counter()
+        with timed_steps(torch, times):
+            one = fit(cfg, **kw)
+        info["one_card_fit_s"] = time.perf_counter() - t0
+        info["one_card_step_s"] = times
+        info["mesh_losses"], info["one_card_losses"] = mesh_losses, list(
+            one["losses"])
+        for i, (x, y) in enumerate(zip(mesh_losses, one["losses"])):
+            if abs(x - y) > TRAIN_MESH_LOSS_RTOL * abs(y):
+                raise AssertionError(f"train mesh: step {i} loss {x} on the "
+                                     f"mesh, {y} on one card")
+        diffs, equal = {}, True
+        for k, v in one["params"].reference_leaves().items():
+            mine = host.pop(k).cuda()
+            equal &= torch.equal(mine, v)
+            d = float((mine.float() - v.float()).abs().max())
+            scale = max(float(v.float().abs().max()), 1e-30)
+            diffs[k] = d
+            if d > TRAIN_MESH_PARAM_TOL * scale:
+                raise AssertionError(f"train mesh: {k} differs by {d} "
+                                     f"(largest magnitude {scale})")
+        info["param_max_diff"] = diffs
+        info["bit_equal"] = bool(equal and mesh_losses == one["losses"])
+        if not info["bit_equal"]:
+            # every placement replicates at world 1: DTensor only wraps
+            apart = [k for k, d in diffs.items() if d] + [
+                f"loss {i}" for i, (x, y) in enumerate(zip(
+                    mesh_losses, one["losses"])) if x != y]
+            raise AssertionError(f"train mesh: not bit-equal to one card "
+                                 f"at world 1: {apart[:5]}")
+
+        # one more step on one card, profiled: its aten calls beside the
+        # mesh step's (the parameters it leaves are not used again)
+        one_step_fn = build_train_step(cfg, ocfg)
+        one_batch = {k: v.cuda() for k, v in batch.items()}
+        info["one_card_collectives"] = mesh_collectives(
+            torch, lambda: one_step_fn(one["params"], one["opt_state"],
+                                       one_batch))
+        del one_step_fn, one_batch
+
+        # compressed_psum over a full-width gradient leaf at world 1
+        plain = {k: v.cuda() for k, v in batch_at_step(
+            TRAIN_MESH_SEED, 0, b, s, cfg.vocab_size).items()}
+        _, _, grads = loss_and_grads(one["params"], plain, cfg)
+        g = grads[TRAIN_MESH_LEAF]
+        del grads
+        q, scale = C._quantize(g.float())
+        local = C._dequantize(q, scale).to(g.dtype)
+        psum = C.compressed_psum(g)
+        if not torch.equal(psum, local):
+            raise AssertionError("train mesh: compressed_psum at world 1 "
+                                 "differs from the local quantization")
+        info["psum"] = dict(
+            leaf=TRAIN_MESH_LEAF, shape=list(g.shape), dtype=str(g.dtype),
+            ms=cuda_ms(torch, lambda: C.compressed_psum(g), 5),
+            local_ms=cuda_ms(torch, lambda: C._dequantize(
+                *C._quantize(g.float())).to(g.dtype), 5),
+            bit_equal=True)
+        del one, g, q, local, psum
+        torch.cuda.empty_cache()
+        return info
+    finally:
+        torch.use_deterministic_algorithms(saved)
+        M.destroy_world()
+
+
+def phase_done(n: int, name: str, t0: float) -> float:
+    """A phase's wall seconds, printed on a line of their own."""
+    sec = time.perf_counter() - t0
+    print(f"phase {n} {name}: {sec:.1f} s")
+    return sec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-series", type=int, default=1 << 20)
     args = ap.parse_args()
     sys.stdout.reconfigure(line_buffering=True)
+    tp = time.perf_counter()
 
     import torch
 
@@ -4306,8 +4521,9 @@ def main() -> int:
     print(card_name())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+    phase_done(1, "environment", tp)
 
-    t0 = time.perf_counter()
+    tp = t0 = time.perf_counter()
     logs = build.build_all()
     print(f"build: {len(logs)} kernels in {time.perf_counter() - t0:.1f} s "
           f"into {build.BUILD_DIR}")
@@ -4319,20 +4535,23 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas {name} {entry}: {line.split(':', 1)[-1]}"
                       .rstrip())
+    phase_done(2, "build", tp)
 
-    t0 = time.perf_counter()
+    tp = t0 = time.perf_counter()
     phase_ragged(torch, ops, ref)
     print(f"ragged kernel checks: ok ({time.perf_counter() - t0:.1f} s)")
+    phase_done(3, "ragged kernels", tp)
 
     idx_mods = (isax, dstree, vafile)
     baselines = (graph, imi, qalsh, srs)
-    t0 = time.perf_counter()
+    tp = t0 = time.perf_counter()
     phase_small(torch, S, G, idx_mods, randomwalk, queries)
     phase_small_wide(torch, S, G, isax, baselines, randomwalk, queries)
     print(f"small input, card vs CPU: ok ({time.perf_counter() - t0:.1f} s)")
+    phase_done(4, "small input", tp)
 
     n_series, k = args.n_series, 100
-    t0 = time.perf_counter()
+    tp = t0 = time.perf_counter()
     data = randomwalk.generate(seed=11, n_series=n_series, series_len=256)
     q = queries.noisy_queries(data, 100)
     print(f"data: {n_series} x 256 random-walk series, 100 queries "
@@ -4376,8 +4595,10 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    phase_done(5, "main path", tp)
 
     # the out-of-core path, with its own launch counts
+    tp = time.perf_counter()
     root = Path(build.BUILD_DIR).parent / "chip_smoke_stores"
     shutil.rmtree(root, ignore_errors=True)
     for fn in wrappers.values():
@@ -4400,8 +4621,10 @@ def main() -> int:
                              f"path: {missing}")
     counts.update({name: ooc_counts[name]
                    for name in ("pq_adc_batch", "pq_adc_select")})
+    phase_done(6, "out-of-core path", tp)
 
     # the vector baselines on the main path's data, with their own counts
+    tp = time.perf_counter()
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -4421,9 +4644,11 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the baselines "
                              f"path: {missing}")
+    phase_done(7, "vector baselines", tp)
 
     # the sharded engine on the main path's data, with its own counts,
     # then streaming ingest on its engines, with its own
+    tp = time.perf_counter()
     eng_root = root / "engine"
     shutil.rmtree(eng_root, ignore_errors=True)
     for fn in wrappers.values():
@@ -4451,25 +4676,26 @@ def main() -> int:
         if missing:
             raise AssertionError(f"kernels not launched on the engine path: "
                                  f"{missing}")
+        phase_done(8, "sharded engine", tp)
 
         for fn in wrappers.values():
             fn.launches = 0
-        t0 = time.perf_counter()
+        tp = t0 = time.perf_counter()
         before = {(r["mode"], r["guarantee"]): r["ms"] for r in eng_table}
         ing_table, ing_times, ing_held, live = phase_ingest(
             torch, S, G, ref, data, data_t, q, truth, k, engines, before,
             PathInputs(torch, ops, ref, wrappers))
         ing_counts = {name: fn.launches for name, fn in wrappers.items()}
-        ing_s = time.perf_counter() - t0
+        ing_s = phase_done(9, "streaming ingest", tp)
 
         for fn in wrappers.values():
             fn.launches = 0
-        t0 = time.perf_counter()
+        tp = t0 = time.perf_counter()
         srv_table, srv_info, srv_held = phase_serving(
             torch, S, G, data_t, q, truth, k, engines, live,
             PathInputs(torch, ops, ref, wrappers))
         srv_counts = {name: fn.launches for name, fn in wrappers.items()}
-        srv_s = time.perf_counter() - t0
+        srv_s = phase_done(10, "serving front", tp)
         ins_rate = ing_times["inserted"] / max(ing_times["insert_s"], 1e-9)
         del_rate = ing_times["deleted"] / max(ing_times["delete_s"], 1e-9)
         comp = ing_times["compact_s"]
@@ -4522,7 +4748,7 @@ def main() -> int:
         # serving phase's resident engine, with its own counts
         for fn in wrappers.values():
             fn.launches = 0
-        t0 = time.perf_counter()
+        tp = t0 = time.perf_counter()
         model, llm_cfg, llm_info = phase_llm_model(torch)
         llm_table, llm_held = phase_llm_serving(
             torch, S, model, llm_cfg, engines["resident"], live,
@@ -4547,13 +4773,14 @@ def main() -> int:
                                  f"{missing}")
         print(json.dumps({"llm": dict(llm_info, seconds=llm_s,
                                       serving=llm_table)}))
+        phase_done(11, "LLM substrate", tp)
 
         # the MoE, SSM and hybrid families, then deepseek behind the static
         # front over the same engine, with their own counts
         torch.cuda.empty_cache()
         for fn in wrappers.values():
             fn.launches = 0
-        t0 = time.perf_counter()
+        tp = t0 = time.perf_counter()
         fam_info, fam_table, fam_held = phase_families(
             torch, S, engines["resident"], live, srv_info["writes"], q,
             srv_info["f_ms"], PathInputs(torch, ops, ref, wrappers))
@@ -4577,6 +4804,7 @@ def main() -> int:
             raise AssertionError(f"kernels not launched on the families "
                                  f"path: {missing}")
         print(json.dumps({"families": dict(fam_info, seconds=fam_s)}))
+        phase_done(12, "families", tp)
     finally:
         if engines is not None:
             engines["resident"].close()
@@ -4585,6 +4813,7 @@ def main() -> int:
 
     # the encoder-decoder family, then training, with the engines closed
     # and their own counts: no kernel of the port lies on either path
+    tp = time.perf_counter()
     torch.cuda.empty_cache()
     for fn in wrappers.values():
         fn.launches = 0
@@ -4596,6 +4825,8 @@ def main() -> int:
           f"depth; peak {enc_info['peak_gb']:.1f} GB allocated)")
     print(f"launches on the encdec path: {enc_counts}")
     print(json.dumps({"encdec": dict(enc_info, seconds=enc_s)}))
+    phase_done(13, "encoder-decoder", tp)
+    tp = time.perf_counter()
     torch.cuda.empty_cache()
     for fn in wrappers.values():
         fn.launches = 0
@@ -4609,9 +4840,11 @@ def main() -> int:
           "by earlier phases)")
     print(f"launches on the train path: {train_counts}")
     print(json.dumps({"train": dict(train_info, seconds=train_s)}))
+    phase_done(14, "training", tp)
 
     # the roofline phase, with its own counts: the search cell (K1, K4 and
     # lex_select through the path's recorder), then the decode cells
+    tp = time.perf_counter()
     torch.cuda.empty_cache()
     for fn in wrappers.values():
         fn.launches = 0
@@ -4630,8 +4863,10 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the roofline path: "
                              f"{missing}")
     print(json.dumps({"roofline": dict(roof_info, seconds=roof_s)}))
+    phase_done(15, "roofline", tp)
 
     # the engine across ranks, at world 1 over NCCL, with its own counts
+    tp = time.perf_counter()
     torch.cuda.empty_cache()
     for fn in wrappers.values():
         fn.launches = 0
@@ -4660,7 +4895,53 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the mesh path: "
                              f"{missing}")
     print(json.dumps({"mesh": dict(mesh_info, seconds=mesh_s)}))
+    phase_done(16, "engine across ranks", tp)
 
+    # training across ranks, at world 1 over NCCL, with its own counts: no
+    # kernel of the port lies on this path
+    tp = time.perf_counter()
+    torch.cuda.empty_cache()
+    for fn in wrappers.values():
+        fn.launches = 0
+    tm_info = phase_train_mesh(torch)
+    tm_counts = {name: fn.launches for name, fn in wrappers.items()}
+    tm_s = time.perf_counter() - tp
+    col = tm_info["collectives"]
+    ms, ms1 = tm_info["mesh_step_s"], tm_info["one_card_step_s"]
+    print(f"training across ranks ({tm_s:.1f} s; {tm_info['config']} at "
+          f"full width and depth, {tm_info['params']} parameters, bf16, "
+          f"{tm_info['steps']} steps of {tm_info['batch']} x "
+          f"{tm_info['seq']} tokens; world {tm_info['world']} over "
+          f"{tm_info['backend']}, mesh {tm_info['mesh']}; deterministic "
+          f"algorithms on)")
+    for i, (a, b1) in enumerate(zip(tm_info["mesh_losses"],
+                                     tm_info["one_card_losses"])):
+        print(f"  train mesh step {i}: loss {a!r} on the mesh "
+              f"({ms[i] * 1e3:.1f} ms), {b1!r} on one card "
+              f"({ms1[i] * 1e3:.1f} ms)")
+    worst = max(tm_info["param_max_diff"].items(), key=lambda kv: kv[1])
+    print(f"  train mesh parameters: {len(tm_info['param_max_diff'])} leaves"
+          f", largest difference {worst[1]!r} ({worst[0]}); bit-equal to one"
+          f" card: {tm_info['bit_equal']}")
+    print(f"  train mesh collectives of one profiled step: "
+          f"{col['nccl_kernels']} NCCL kernels, {col['nccl_kernel_ms']:.3f} "
+          f"ms, host {col['host_ops']}")
+    col1 = tm_info["one_card_collectives"]
+    gap = (ms[-1] - ms1[-1]) * 1e3
+    print(f"  aten calls of one profiled step, mesh / one card: outermost "
+          f"{col['outer_aten_calls']} / {col1['outer_aten_calls']}, all "
+          f"{col['aten_calls']} / {col1['aten_calls']}; the last step's "
+          f"gap {gap:.1f} ms = {gap * 1e3 / col['outer_aten_calls']:.1f} us "
+          f"an outermost mesh call")
+    ps = tm_info["psum"]
+    print(f"  compressed_psum over {ps['leaf']} {ps['shape']} {ps['dtype']}: "
+          f"bit-equal to the local quantization at world 1, {ps['ms']:.3f} ms "
+          f"(local {ps['local_ms']:.3f} ms)")
+    print(f"launches on the train mesh path: {tm_counts}")
+    print(json.dumps({"train_mesh": dict(tm_info, seconds=tm_s)}))
+    phase_done(17, "training across ranks", tp)
+
+    tp = time.perf_counter()
     rows = kernel_rows(torch, ops, ref, build, data_t, q_t, built["isax2+"],
                        built["va+file"], k, counts, pq_in)
     for r in rows:
@@ -4676,12 +4957,14 @@ def main() -> int:
             "encdec": enc_counts[r["name"]],
             "train": train_counts[r["name"]],
             "roofline": roof_counts[r["name"]],
-            "mesh": mesh_counts[r["name"]]}
+            "mesh": mesh_counts[r["name"]],
+            "train_mesh": tm_counts[r["name"]]}
     shapes = shape_rows(torch, ops, ref, data_t, q_t)
     for r in shapes:
         print(f"  {r['name']} at {r['shape']}: {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     print(json.dumps({"kernel_shapes": shapes}))
+    phase_done(18, "kernels at the main path's shapes", tp)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,12 @@ import torch.distributed as dist
 
 from repro_torch import device as device_mod
 from repro_torch.core.ranks import rank_device
+# the reference's name for it here; the model layer owns it
+from repro_torch.models.params import mesh_axis_sizes
+
+__all__ = ["BACKENDS", "data_axes", "destroy_world", "init_world",
+           "make_mesh", "make_production_mesh", "make_test_mesh",
+           "mesh_axis_sizes"]
 
 # the backend that drives each device type's world
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
@@ -107,10 +113,5 @@ def make_test_mesh(shape: Tuple[int, ...] = (4, 2),
     return make_mesh(shape, axes, device)
 
 
-def mesh_axis_sizes(mesh) -> dict:
-    return dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.mesh.shape)))
-
-
 def data_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
-

@@ -28,6 +28,7 @@ import torch
 
 from .layers import rope, rounded, softcap
 from .params import ParamSpec
+from .sharding_utils import constrain, unshard_fsdp
 
 __all__ = ["NEG_INF", "AttnConfig", "attn_specs", "cross_attention",
            "cross_kv", "decode_attention", "self_attention"]
@@ -71,9 +72,11 @@ def attn_specs(cfg: AttnConfig, dtype) -> Dict[str, ParamSpec]:
     return specs
 
 
-def _proj(x, w):
-    """einsum('bsd,dhk->bshk') as one matmul."""
+def _proj(x, w, heads: str = "heads"):
+    """einsum('bsd,dhk->bshk') as one matmul, the weight's fsdp dim
+    gathered first (its ``heads`` dim, 'heads' or 'kv_heads', kept)."""
     d, h, k = w.shape
+    w = unshard_fsdp(w, "fsdp", heads, "head_dim")
     return torch.matmul(x, w.to(x.dtype).reshape(d, h * k)).unflatten(
         -1, (h, k))
 
@@ -81,8 +84,8 @@ def _proj(x, w):
 def _project_qkv(params, x, cfg: AttnConfig, positions):
     dtype = x.dtype
     q = _proj(x, params["wq"])
-    k = _proj(x, params["wk"])
-    v = _proj(x, params["wv"])
+    k = _proj(x, params["wk"], "kv_heads")
+    v = _proj(x, params["wv"], "kv_heads")
     if cfg.qkv_bias:
         q = q + params["bq"].to(dtype)
         k = k + params["bk"].to(dtype)
@@ -92,6 +95,11 @@ def _project_qkv(params, x, cfg: AttnConfig, positions):
         k = rope(k, positions, cfg.rope_theta)
     # after RoPE, in the compute dtype
     q = q * rounded(cfg.query_scale or (cfg.head_dim ** -0.5), dtype)
+    # head-parallel attention: Q over 'model'; K/V shard kv_heads when
+    # divisible, else replicate over 'model'
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
@@ -175,8 +183,10 @@ def _attend_blockwise(q, k, v, *, causal: bool, window: Optional[int],
 
 
 def _out_proj(out, wo):
-    """einsum('bshk,hkd->bsd') as one matmul."""
+    """einsum('bshk,hkd->bsd') as one matmul, the weight's fsdp dim
+    gathered first."""
     h, k, d = wo.shape
+    wo = unshard_fsdp(wo, "heads", "head_dim", "fsdp")
     return torch.matmul(out.flatten(-2), wo.to(out.dtype).reshape(h * k, d))
 
 
@@ -228,8 +238,8 @@ def cross_kv(params, enc_out: torch.Tensor, cfg: AttnConfig
     """The encoder output [B, F, d_model] -> the cross keys and values
     [B, F, Kv, D], in its dtype, without RoPE."""
     dtype = enc_out.dtype
-    k = _proj(enc_out, params["wk"])
-    v = _proj(enc_out, params["wv"])
+    k = _proj(enc_out, params["wk"], "kv_heads")
+    v = _proj(enc_out, params["wv"], "kv_heads")
     if cfg.qkv_bias:
         k = k + params["bk"].to(dtype)
         v = v + params["bv"].to(dtype)

@@ -17,8 +17,10 @@ import torch
 import torch.nn.functional as F
 
 from .params import ParamSpec
+from .sharding_utils import constrain, unshard_fsdp
 
-__all__ = ["act_fn", "cross_entropy", "embed_apply", "embed_specs",
+__all__ = ["act_fn", "cross_entropy", "dense_specs", "embed_apply",
+           "embed_specs",
            "logits_apply", "mlp_apply", "mlp_specs", "rmsnorm_apply",
            "rmsnorm_specs", "rope", "rounded", "softcap"]
 
@@ -74,6 +76,20 @@ def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-6, *,
 # Gated MLP
 # ---------------------------------------------------------------------------
 
+def dense_specs(d_in: int, d_out: Tuple[int, ...], logical_in: str,
+                logical_out: Tuple[str, ...], dtype, *, bias: bool = False
+                ) -> Dict[str, ParamSpec]:
+    """A dense layer's weight [d_in, *d_out] (and its zero bias)."""
+    shape = (d_in,) + tuple(d_out)
+    logical = (logical_in,) + tuple(logical_out)
+    specs = {"w": ParamSpec(shape, logical, dtype=dtype, init="scaled",
+                            fan_in_axes=(0,))}
+    if bias:
+        specs["b"] = ParamSpec(tuple(d_out), tuple(logical_out), dtype=dtype,
+                               init="zeros")
+    return specs
+
+
 def mlp_specs(d_model: int, d_ff: int, dtype) -> Dict[str, Any]:
     """Gated MLP (gate, up, down)."""
     return {
@@ -88,10 +104,13 @@ def mlp_specs(d_model: int, d_ff: int, dtype) -> Dict[str, Any]:
 
 def mlp_apply(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     dtype = x.dtype
-    gate = torch.matmul(x, params["wi_gate"].to(dtype))
-    up = torch.matmul(x, params["wi_up"].to(dtype))
+    wg = unshard_fsdp(params["wi_gate"], "fsdp", "mlp").to(dtype)
+    wu = unshard_fsdp(params["wi_up"], "fsdp", "mlp").to(dtype)
+    wo = unshard_fsdp(params["wo"], "mlp", "fsdp").to(dtype)
+    gate = torch.matmul(x, wg)
+    up = torch.matmul(x, wu)
     h = act_fn(act)(gate) * up
-    return torch.matmul(h, params["wo"].to(dtype))
+    return torch.matmul(h, wo)
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +127,12 @@ def embed_specs(vocab: int, d_model: int, dtype) -> Dict[str, ParamSpec]:
 
 
 def embed_apply(params, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
-    return F.embedding(tokens.long(), params["embedding"]).to(compute_dtype)
+    # on a mesh the table is gathered over 'model' first: DTensor's lookup
+    # in a vocab-sharded table is a masked partial sum, whose mask is
+    # spent by its first reduction (a recomputed block reduces it again)
+    # and whose gradient cannot be redistributed back to it
+    table = constrain(params["embedding"], None, None)
+    return F.embedding(tokens.long(), table).to(compute_dtype)
 
 
 def logits_apply(params, x: torch.Tensor, *, tied: bool, head_params=None,
@@ -118,7 +142,8 @@ def logits_apply(params, x: torch.Tensor, *, tied: bool, head_params=None,
     if tied:
         logits = torch.matmul(x, params["embedding"].to(x.dtype).t())
     else:
-        logits = torch.matmul(x, head_params["w"].to(x.dtype))
+        w = unshard_fsdp(head_params["w"], "fsdp", "vocab").to(x.dtype)
+        logits = torch.matmul(x, w)
     return softcap(logits, final_softcap)
 
 

@@ -33,6 +33,7 @@ from . import transformer as tfm
 from .layers import (cross_entropy, embed_apply, embed_specs, logits_apply,
                      rmsnorm_apply, rmsnorm_specs, rounded)
 from .params import ParamSpec, Params, initialize
+from .sharding_utils import constrain
 from .ssm import ssm_cache_shape
 
 __all__ = ["FIRST_LAYER", "Model", "alloc_cache", "decode_cache_specs",
@@ -154,7 +155,10 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
         moe_loss = 0.0
     else:
         x, moe_loss = _backbone(params, batch["tokens"], cfg)
-    logits = _logits(params, x, cfg)
+    # on a mesh the label gather cannot run over a vocab-sharded dim
+    # (DTensor's masked partial of the picked logit does not combine with
+    # the log-sum-exp): the logits are gathered over 'model' first
+    logits = constrain(_logits(params, x, cfg), "batch", None, None)
     loss, metrics = cross_entropy(logits, batch["labels"], batch.get("mask"))
     total = loss + moe_loss
     moe_loss = torch.as_tensor(moe_loss, dtype=torch.float32,

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from .layers import act_fn, mlp_apply, mlp_specs
 from .params import ParamSpec
+from .sharding_utils import constrain, unshard_fsdp
 
 __all__ = ["MoEConfig", "capacity", "dispatch", "moe_apply", "moe_loss",
            "moe_specs"]
@@ -132,7 +133,10 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *,
     f32, the experts in x's dtype over capacity buffers."""
     b, s, d = x.shape
     t = b * s
-    xt = x.reshape(t, d)
+    # on a mesh the routing, the capacity positions (a cumsum over every
+    # token) and the index scatter and gather of the dispatch have no
+    # sharded form: the token rows are replicated over every rank first
+    xt = constrain(x.reshape(t, d), None, None)
     e, k = cfg.num_experts, cfg.top_k
     dtype = x.dtype
 
@@ -144,17 +148,23 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *,
     # scatter token rows into expert buffers [E*C (+ the drop row), D]
     dest_flat = dest.reshape(t * k)
     buf = torch.zeros(e * cap + 1, d, dtype=dtype, device=x.device)
-    buf[dest_flat] = xt.repeat_interleave(k, dim=0)  # token-major [T*K, D]
-    buf = buf[:e * cap].reshape(e, cap, d)
+    # out of place: on a mesh the rows are a DTensor and the buffer is not
+    buf = buf.index_put((dest_flat,), xt.repeat_interleave(k, dim=0))
+    # expert-parallel: buffers live where the expert weights live
+    buf = constrain(buf[:e * cap].reshape(e, cap, d), "experts", None, None)
+    wg = unshard_fsdp(params["wi_gate"], "experts", "fsdp", "mlp")
+    wu = unshard_fsdp(params["wi_up"], "experts", "fsdp", "mlp")
+    wo = unshard_fsdp(params["wo"], "experts", "mlp", "fsdp")
 
     # serving: the gate activated and freed before the up projection, two
     # [E, C, f] buffers live, not three (jamba's are 3.8 GB each at 8224
     # tokens); training keeps the activation for the product's backward
-    h = act_fn(act)(torch.matmul(buf, params["wi_gate"].to(dtype)))
-    up = torch.matmul(buf, params["wi_up"].to(dtype))
+    h = act_fn(act)(torch.matmul(buf, wg.to(dtype)))
+    up = torch.matmul(buf, wu.to(dtype))
     h = h * up if h.requires_grad or up.requires_grad else h.mul_(up)
     del up
-    out_buf = torch.matmul(h, params["wo"].to(dtype)).reshape(e * cap, d)
+    out_buf = constrain(torch.matmul(h, wo.to(dtype)), "experts", None,
+                        None).reshape(e * cap, d)
 
     # gather back, weight, sum over the k copies
     gathered = out_buf[dest_flat.clamp_max(e * cap - 1)]

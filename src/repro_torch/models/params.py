@@ -8,15 +8,20 @@ declaration come the parameter count and bytes (no allocation),
 dry runs) and :func:`initialize`, which draws every tensor on the device
 from one ``torch.Generator``. The reference draws from jax keys, which torch
 cannot reproduce: parity with it carries the weights across
-(``repro_torch.models.convert``). Resolving the logical axes onto a mesh
-waits for the multi-GPU slice (ROADMAP Queue 1).
+(``repro_torch.models.convert``).
+
+The logical axes resolve onto a mesh as the reference's do:
+:func:`resolve_pspec` gives each dim's entry (None, a mesh axis name or a
+tuple of names; the counterpart of a ``PartitionSpec``), and
+:func:`placements` turns the entries into DTensor placements over the
+mesh's dims, the counterpart of ``NamedSharding(mesh, P(...))``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,9 +29,15 @@ import torch
 from repro_torch import device as device_mod
 
 Axis = Optional[str]
+MeshAxes = Union[None, str, Tuple[str, ...]]
+# one tensor dim's entry of a partition spec: unsharded, one mesh axis, or
+# several (the first the major)
+Entry = Union[None, str, Tuple[str, ...]]
 
-__all__ = ["ParamSpec", "Params", "abstract", "initialize", "is_spec",
-           "param_bytes", "param_count", "spec_leaves", "tree_map_specs",
+__all__ = ["DEFAULT_RULES", "LogicalSDS", "ParamSpec", "Params", "abstract",
+           "initialize", "is_spec", "logical_sds", "mesh_axis_sizes",
+           "param_bytes", "param_count", "partition_specs", "placements",
+           "resolve_pspec", "shardings", "spec_leaves", "tree_map_specs",
            "unstack"]
 
 
@@ -173,3 +184,137 @@ def unstack(tree) -> list:
             for k, v in tree.items()}
     n = len(next(iter(cols.values())))
     return [{k: c[l] for k, c in cols.items()} for l in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# Logical -> physical sharding resolution
+# ---------------------------------------------------------------------------
+
+def _as_tuple(mx: MeshAxes) -> Tuple[str, ...]:
+    if mx is None:
+        return ()
+    if isinstance(mx, str):
+        return (mx,)
+    return tuple(mx)
+
+
+def mesh_axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a DeviceMesh, or the dict itself (a mesh's
+    shape by name, for resolving specs without a world)."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.mesh.shape)))
+
+
+def resolve_pspec(logical: Sequence[Axis], shape: Sequence[int],
+                  rules: Dict[str, MeshAxes], mesh_shape: Dict[str, int]
+                  ) -> Tuple[Entry, ...]:
+    """Resolve logical axes to a partition spec under divisibility
+    constraints: one entry per dim, trailing Nones stripped.
+
+    Later dims never reuse a mesh axis consumed by an earlier dim; a rule
+    that does not divide the dimension evenly is skipped (partial
+    prefixes of a multi-axis rule are allowed, e.g. ('data','model')
+    degrades to ('data',) when only the data factor divides)."""
+    used: set = set()
+    out = []
+    for dim, name in zip(shape, logical):
+        entry: Tuple[str, ...] = ()
+        if name is not None and name in rules:
+            cand = [a for a in _as_tuple(rules[name]) if a not in used]
+            # greedy prefix that divides the dim
+            acc: list = []
+            prod = 1
+            for a in cand:
+                if dim % (prod * mesh_shape.get(a, 1)) == 0:
+                    acc.append(a)
+                    prod *= mesh_shape.get(a, 1)
+            entry = tuple(acc)
+        used.update(entry)
+        if len(entry) == 0:
+            out.append(None)
+        elif len(entry) == 1:
+            out.append(entry[0])
+        else:
+            out.append(entry)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def placements(spec: Sequence[Entry], mesh) -> tuple:
+    """A partition spec's DTensor placements over ``mesh``'s dims (a
+    DeviceMesh, or a dict of axis sizes in the mesh's order):
+    ``Shard(d)`` on each mesh dim of more than one rank that tensor dim
+    d's entry names, ``Replicate()`` on the others (a split in one is the
+    whole tensor, and DTensor cannot reshape a dim of size 1 sharded so).
+    A dim split over several mesh axes is split by them in the mesh's
+    order, the first the major, as jax splits it when the entry lists
+    them in that order (every rule does)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    sizes = mesh_axis_sizes(mesh)
+    names = list(sizes)
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        for a in _as_tuple(entry):
+            if sizes[a] > 1:
+                out[names.index(a)] = Shard(d)
+    return tuple(out)
+
+
+def partition_specs(tree, rules: Dict[str, MeshAxes], mesh):
+    """Every spec's partition spec on ``mesh`` (a DeviceMesh or a dict of
+    axis sizes)."""
+    mesh_shape = mesh_axis_sizes(mesh)
+    return tree_map_specs(
+        lambda s: resolve_pspec(s.logical, s.shape, rules, mesh_shape), tree)
+
+
+def shardings(tree, rules: Dict[str, MeshAxes], mesh):
+    """Every spec's DTensor placements on ``mesh``."""
+    mesh_shape = mesh_axis_sizes(mesh)
+    return tree_map_specs(
+        lambda s: placements(resolve_pspec(s.logical, s.shape, rules,
+                                           mesh_shape), mesh), tree)
+
+
+# Default rule set shared by all architectures. 'fsdp' behaviour comes from
+# mapping the embed/mlp fan dims onto the data axis *after* model axes; the
+# resolver guarantees no axis is double-booked within a tensor.
+DEFAULT_RULES: Dict[str, MeshAxes] = {
+    # activations
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": None,
+    # params: tensor parallel first, then fsdp over data
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": "model",
+    "mlp": "model",
+    "experts": "model",
+    "ssm_inner": "model",
+    "ssm_state": None,
+    "fsdp": ("pod", "data"),  # fan-in dim of big matrices
+    "layers": None,  # scan axis, never sharded
+    "conv": None,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class LogicalSDS:
+    """A tensor's shape and dtype with its resolved sharding: the
+    counterpart of the reference's ShapeDtypeStruct carrying a
+    NamedSharding (for dry-run inputs)."""
+
+    shape: Tuple[int, ...]
+    dtype: Any
+    spec: Tuple[Entry, ...]
+    placements: tuple
+
+
+def logical_sds(shape: Sequence[int], logical: Sequence[Axis], dtype,
+                rules: Dict[str, MeshAxes], mesh) -> LogicalSDS:
+    spec = resolve_pspec(logical, shape, rules, mesh_axis_sizes(mesh))
+    return LogicalSDS(tuple(shape), dtype, spec, placements(spec, mesh))

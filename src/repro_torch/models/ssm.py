@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from .layers import rmsnorm_apply, rmsnorm_specs
 from .params import ParamSpec
+from .sharding_utils import constrain, unshard_fsdp
 
 __all__ = ["SSMConfig", "ssd_chunked", "ssd_reference", "ssm_apply",
            "ssm_cache_shape", "ssm_decode_step", "ssm_specs"]
@@ -89,10 +90,16 @@ def _causal_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# each input projection's output axis (its fsdp dim is gathered at use)
+_PROJ = (("wz", "ssm_inner"), ("wx", "ssm_inner"), ("wB", None),
+         ("wC", None), ("wdt", None))
+
+
 def _project(params, u: torch.Tensor, cfg: SSMConfig):
     dtype = u.dtype
-    return tuple(torch.matmul(u, params[name].to(dtype))
-                 for name in ("wz", "wx", "wB", "wC", "wdt"))
+    return tuple(torch.matmul(u, unshard_fsdp(params[name], "fsdp",
+                                              out).to(dtype))
+                 for name, out in _PROJ)
 
 
 def _heads(t: torch.Tensor, cfg: SSMConfig, groups: bool) -> torch.Tensor:
@@ -109,8 +116,14 @@ def _activate(params, x, bb, cc, dt, cfg: SSMConfig):
     dt = F.softplus(dt.float() + params["dt_bias"][None, None, :])
     dt = torch.clamp(dt, cfg.dt_min, cfg.dt_max * 100.0)
     a = -torch.exp(params["A_log"].float())  # [H], negative
-    return (_heads(x, cfg, False), _heads(bb, cfg, True),
-            _heads(cc, cfg, True), dt, a)
+    # pin (batch, heads) so that the chunked SSD's einsums stay local
+    return (constrain(_heads(x, cfg, False), "batch", None, "ssm_inner",
+                      None),
+            constrain(_heads(bb, cfg, True), "batch", None, "ssm_inner",
+                      None),
+            constrain(_heads(cc, cfg, True), "batch", None, "ssm_inner",
+                      None),
+            constrain(dt, "batch", None, "ssm_inner"), a)
 
 
 def ssd_chunked(xh: torch.Tensor, bh: torch.Tensor, ch: torch.Tensor,
@@ -206,7 +219,8 @@ def ssm_apply(params, u: torch.Tensor, cfg: SSMConfig,
     y = y + params["D"].float()[None, None, :, None] * xh.float()
     y = y.reshape(b, s, cfg.d_inner).to(dtype)
     y = rmsnorm_apply(params["norm"], y * F.silu(z))
-    out = torch.matmul(y, params["wo"].to(dtype))
+    out = torch.matmul(y, unshard_fsdp(params["wo"], "ssm_inner",
+                                       "fsdp").to(dtype))
     if not return_cache:
         return out
 
@@ -267,6 +281,7 @@ def ssm_decode_step(params, u: torch.Tensor, cache: Dict[str, torch.Tensor],
     y = y + params["D"].float()[None, :, None] * xh
     y = y.reshape(b, cfg.d_inner).to(dtype)
     y = rmsnorm_apply(params["norm"], y * F.silu(z))
-    out = torch.matmul(y, params["wo"].to(dtype))
+    out = torch.matmul(y, unshard_fsdp(params["wo"], "ssm_inner",
+                                       "fsdp").to(dtype))
     return out[:, None, :], {"conv_x": conv_x, "conv_B": conv_B,
                              "conv_C": conv_C, "h": h.to(cache["h"].dtype)}

@@ -31,6 +31,7 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import mlp_apply, mlp_specs, rmsnorm_apply, rmsnorm_specs
 from .params import ParamSpec, tree_map_specs, unstack
+from .sharding_utils import constrain
 
 __all__ = ["attn_config", "block_specs", "cache_specs", "decode_blocks",
            "remat", "run_blocks", "stack_specs", "sublayer_cache_spec",
@@ -50,12 +51,6 @@ def attn_config(cfg: ModelConfig) -> attn_mod.AttnConfig:
         chunk_q=cfg.attn_chunk_q,
         dense_threshold=cfg.attn_dense_threshold,
     )
-
-
-def _check_one_card(cfg: ModelConfig) -> None:
-    if cfg.sequence_parallel:
-        raise ValueError(f"{cfg.name}: sequence_parallel shards the residual "
-                         "stream over a model axis; one card has none")
 
 
 # ---------------------------------------------------------------------------
@@ -133,6 +128,11 @@ def _write(entry: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
         entry[name].copy_(t)
 
 
+def _sp(cfg: ModelConfig):
+    """Residual-stream seq axis under sequence parallelism."""
+    return "seq_model" if cfg.sequence_parallel else None
+
+
 def _apply_sublayer(p, x: torch.Tensor, desc: LayerDesc, cfg: ModelConfig,
                     positions: torch.Tensor,
                     entry: Optional[Dict[str, torch.Tensor]] = None
@@ -140,8 +140,18 @@ def _apply_sublayer(p, x: torch.Tensor, desc: LayerDesc, cfg: ModelConfig,
     """One sub-layer over the whole sequence: (x, its MoE loss; 0.0 for a
     dense or no FF, and with a cache). With ``entry`` (its slot of the
     cache) an attention layer writes its keys and values at [:, :S] of
-    {k, v} [B, cap, Kv, D], a mamba layer its conv tails and state."""
+    {k, v} [B, cap, Kv, D], a mamba layer its conv tails and state.
+
+    Sequence parallelism (cfg.sequence_parallel): the residual stream x
+    stays sharded (batch, seq->model); the pre-norm runs local, the
+    normed input is gathered over 'model' right before each mixer, and
+    the mixer's output is constrained back to seq-sharded, so the
+    output projection's partial sums are reduce-scattered instead of
+    all-reduced (Korthikanti et al.). Without a mesh every pin is the
+    identity."""
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+    if cfg.sequence_parallel:
+        h = constrain(h, "batch", None, None)  # gather seq for the mixer
     if desc.kind == "attn":
         window = cfg.local_window if desc.attn_type == "local" else None
         out, (k, v) = attn_mod.self_attention(
@@ -158,15 +168,21 @@ def _apply_sublayer(p, x: torch.Tensor, desc: LayerDesc, cfg: ModelConfig,
             out, new = ssm_mod.ssm_apply(p["mamba"], h, cfg.ssm,
                                          return_cache=True)
             _write(entry, new)
+    if cfg.sequence_parallel:
+        out = constrain(out, "batch", _sp(cfg), None)  # reduce-scatter
     if cfg.post_norm:
         out = rmsnorm_apply(p["post_ln1"], out, cfg.norm_eps)
     x = x + out
     moe_loss = 0.0
     if desc.ff != "none":
-        out, aux = _ff(p, rmsnorm_apply(p["ln2"], x, cfg.norm_eps), desc,
-                       cfg)
+        h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+        if cfg.sequence_parallel and desc.ff == "dense":
+            h = constrain(h, "batch", None, None)
+        out, aux = _ff(p, h, desc, cfg)
         if aux is not None and entry is None:
             moe_loss = moe_mod.moe_loss(aux, cfg.moe)
+        if cfg.sequence_parallel:
+            out = constrain(out, "batch", _sp(cfg), None)
         if cfg.post_norm:
             out = rmsnorm_apply(p["post_ln2"], out, cfg.norm_eps)
         x = x + out
@@ -181,6 +197,7 @@ def _block_fwd(bp, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor, cache, g: int
                ) -> Tuple[torch.Tensor, Any]:
     moe_total = 0.0
+    x = constrain(x, "batch", _sp(cfg), None)
     for i, desc in enumerate(cfg.pattern):
         key = f"sub{i}"
         x, ml = _apply_sublayer(bp[key], x, desc, cfg, positions,
@@ -196,7 +213,6 @@ def run_blocks(blocks, x: torch.Tensor, cfg: ModelConfig,
     order; 0.0 without MoE layers or with a cache). ``cache`` (the stacked
     cache's 'blocks' part) receives each sub-layer's entry; without one,
     each block is recomputed in the backward pass as ``remat`` decides."""
-    _check_one_card(cfg)
     moe_total = 0.0
     for g, bp in enumerate(unstack(blocks)):
         if cache is None:
@@ -239,7 +255,6 @@ def _sublayer_decode(p, x: torch.Tensor, desc: LayerDesc, cfg: ModelConfig,
 def decode_blocks(blocks, x: torch.Tensor, cfg: ModelConfig, cache,
                   pos: int) -> torch.Tensor:
     """One token through the stack; the cache is updated in place."""
-    _check_one_card(cfg)
     for g, bp in enumerate(unstack(blocks)):
         for i, desc in enumerate(cfg.pattern):
             key = f"sub{i}"

@@ -18,6 +18,16 @@ snapshots every tensor to the host on the caller's thread and writes on
 a background thread; it becomes visible only when its directory is
 renamed into place, and ``keep_last`` sweeps the older steps. ``restore`` checks each
 file's sha256 and copies the tensors into the templates in place.
+
+Across ranks (DTensor leaves) a save gathers every tensor whole, on every
+rank and on the caller's thread, before anything reaches the writer (a
+collective on the writer thread could deadlock); rank 0 alone writes,
+and :meth:`Checkpointer.wait` holds every rank until the write is done.
+A DTensor template takes its own shard of the saved array, by its own
+placements: the layout of the current mesh, whatever the mesh that wrote
+it (the reference's elastic reload). The files are the same either way,
+so a checkpoint written on a mesh restores on one rank and in the
+reference, and the other way round.
 """
 
 from __future__ import annotations
@@ -34,10 +44,12 @@ import numpy as np
 import torch
 
 from repro_torch.models.convert import tensor_to_numpy
+from repro_torch.models.sharding_utils import (distribute_opt_state,
+                                               distribute_params, is_dtensor)
 
 from .optimizer import OptState
 
-__all__ = ["Checkpointer"]
+__all__ = ["Checkpointer", "spans_ranks"]
 
 
 def _group_tensors(tree) -> Dict[str, Any]:
@@ -67,12 +79,16 @@ def _group_tensors(tree) -> Dict[str, Any]:
 
 
 def _snapshot(tree) -> Dict[str, Tuple[np.ndarray, str]]:
-    """(host array, dtype name) per key; bfloat16 as its uint16 bits."""
+    """(host array, dtype name) per key; bfloat16 as its uint16 bits; a
+    DTensor gathered whole first (a collective: every rank takes every
+    snapshot, in the same order)."""
     out = {}
     for k, t in _group_tensors(tree).items():
         if isinstance(t, torch.Tensor):
-            out[k] = (tensor_to_numpy(t, raw_bf16=True),
+            whole = t.full_tensor() if is_dtensor(t) else t
+            out[k] = (tensor_to_numpy(whole, raw_bf16=True),
                       str(t.dtype).rsplit(".", 1)[-1])
+            del whole
         else:
             a = np.asarray(t)
             out[k] = (a, a.dtype.name)
@@ -96,21 +112,40 @@ def _sha256(path: str) -> str:
     return h.hexdigest()
 
 
+def spans_ranks(state: Dict[str, Any]) -> bool:
+    """Whether any tensor of ``state`` (top-level groups) is a DTensor:
+    then every rank saves, restores and asks for the latest step
+    together."""
+    return any(is_dtensor(t) for g in state.values()
+               for t in _group_tensors(g).values())
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep_last: int = 3):
         self.dir = directory
         self.keep_last = keep_last
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._ranks_wait = False  # a save across ranks to wait for
 
     def save(self, step: int, state: Dict[str, Any],
              extra: Optional[Dict[str, Any]] = None, *,
              sync: bool = False) -> None:
         """state: top-level groups (a Model, an OptState, dicts of
         tensors). The tensors are copied to the host now; the files are
-        written on a background thread unless ``sync``."""
+        written on a background thread unless ``sync``. With DTensors
+        every rank must call it; rank 0 writes."""
+        across = spans_ranks(state)
         snap = {g: _snapshot(t) for g, t in state.items()}
         self.wait()
+        if across:
+            import torch.distributed as dist
+
+            self._ranks_wait = True
+            if dist.get_rank() != 0:
+                if sync:
+                    self.wait()
+                return
 
         def write():
             final = os.path.join(self.dir, f"step_{step:08d}")
@@ -133,14 +168,22 @@ class Checkpointer:
 
         if sync:
             write()
+            self.wait()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
 
     def wait(self) -> None:
+        """Until the last save is on disk: on every rank after a save
+        across ranks (a barrier once rank 0's writer is done)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._ranks_wait:
+            import torch.distributed as dist
+
+            self._ranks_wait = False
+            dist.barrier()
 
     def _sweep(self) -> None:
         steps = self.all_steps()
@@ -156,18 +199,49 @@ class Checkpointer:
                 out.append(int(name[5:]))
         return sorted(out)
 
-    def latest_step(self) -> Optional[int]:
+    def latest_step(self, *, across: bool = False) -> Optional[int]:
+        """The newest complete step, or None. ``across`` ranks (every rank
+        calls it) rank 0's answer, broadcast, so that every rank restores
+        the same step; raises where this rank cannot see that step (a
+        directory that is not on storage every rank sees)."""
         steps = self.all_steps()
-        return steps[-1] if steps else None
+        latest = steps[-1] if steps else None
+        if not across:
+            return latest
+        import torch.distributed as dist
+
+        box = [latest]
+        dist.broadcast_object_list(box, src=0)
+        if box[0] is not None and box[0] not in steps:
+            raise FileNotFoundError(
+                f"rank {dist.get_rank()} cannot see step {box[0]} in "
+                f"{self.dir}, rank 0's latest: checkpoints across ranks "
+                f"need a directory every rank sees")
+        return box[0]
 
     @torch.no_grad()
     def restore(self, templates: Dict[str, Any], step: Optional[int] = None,
-                *, validate: bool = True
+                *, shardings: Optional[Dict[str, Any]] = None, mesh=None,
+                validate: bool = True
                 ) -> Tuple[int, Dict[str, Any], Dict[str, Any]]:
         """Copy the checkpoint of ``step`` (the latest by default) into the
         templates' tensors in place: (step, the templates, extra). Raises
         IOError when a file's sha256 is not the manifest's, and on a
-        missing tensor or a shape or dtype that is not the template's."""
+        missing tensor or a shape or dtype that is not the template's.
+
+        ``shardings`` (group -> the tree ``launch.sharding.param_shardings``
+        gives for a Model, the OptState ``opt_shardings`` gives for an
+        OptState) with ``mesh``: elastic reload from whole templates; each
+        such group's template is first laid out on ``mesh`` by them, and
+        the returned templates are the laid-out ones."""
+        if shardings:
+            templates = dict(templates)
+            for group, sh in shardings.items():
+                t = templates[group]
+                templates[group] = (
+                    distribute_opt_state(t, mesh, sh)
+                    if isinstance(t, OptState)
+                    else distribute_params(t, mesh, sh))
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -191,5 +265,13 @@ class Checkpointer:
                             f"{fpath}: {key} is {src.dtype}"
                             f"{list(src.shape)}, the template holds "
                             f"{t.dtype}{list(t.shape)}")
-                    t.copy_(src)
+                    if is_dtensor(t):
+                        from torch.distributed.tensor import (
+                            distribute_tensor)
+
+                        t.to_local().copy_(distribute_tensor(
+                            src.to(t.device), t.device_mesh, t.placements,
+                            src_data_rank=None).to_local())
+                    else:
+                        t.copy_(src)
         return step, templates, manifest.get("extra", {})

@@ -6,8 +6,9 @@ per-tensor scale (max |x| / 127), dequantized, and the difference is
 carried to the next step (Seide et al. / EF-SGD), so the quantization
 noise does not bias convergence. ``torch.round`` and ``jnp.round`` both
 round half to even, so the quantized values equal the reference's bit
-for bit. The collective ``compressed_psum`` (an int32 sum of int8 codes
-across cards) waits for the multi-GPU slice.
+for bit. ``compressed_psum`` is the wire-honest int8 all-reduce across
+ranks: one scalar max agrees on a shared scale, then the int8 codes are
+summed as int32.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Dict, Tuple
 
 import torch
 
-__all__ = ["ef_quantize", "init_error_state"]
+__all__ = ["compressed_psum", "ef_quantize", "init_error_state"]
 
 
 def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -50,5 +51,28 @@ def init_error_state(grads_like) -> Dict[str, torch.Tensor]:
     dict of tensors)."""
     leaves = (grads_like.reference_leaves()
               if hasattr(grads_like, "reference_leaves") else grads_like)
-    return {k: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+    return {k: torch.zeros_like(g, dtype=torch.float32)
             for k, g in leaves.items()}
+
+
+@torch.no_grad()
+def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (a process group, a
+    1-D DeviceMesh such as ``mesh["data"]``, or None for the world), with
+    the payload int8 on the wire: an ``all_reduce(MAX)`` of max |x| in f32
+    gives every rank one scale (max / 127), each rank's codes are summed
+    as int32 by one ``all_reduce(SUM)`` (no overflow below 2^24 ranks),
+    and the sum is dequantized in f32 and cast back to ``x``'s dtype. At
+    one rank it is the local quantize-dequantize, bit for bit."""
+    import torch.distributed as dist
+
+    if hasattr(group, "get_group"):
+        group = group.get_group()
+    xf = x.float()
+    gmax = torch.max(torch.abs(xf)).clone()
+    dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp_min(gmax, 1e-12) / 127.0
+    total = torch.clamp(torch.round(xf / scale), -127, 127).to(
+        torch.int8).to(torch.int32)
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    return (total.float() * scale).to(x.dtype)

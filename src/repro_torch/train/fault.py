@@ -5,7 +5,11 @@ loop: it checkpoints every ``ckpt_every`` steps, catches a failed step
 (an injected fault in tests, a lost device in production), restores the
 last durable state and replays forward. The batches are a pure function
 of the step, so a replay on a deterministic step gives the same losses
-bit for bit. A step slower than ``straggler_factor`` times the running
+bit for bit. Across ranks a fault injected at step n fires on every
+rank (the injector is a function of the step), every rank restores the
+checkpoint of rank 0's latest step, and the replay is bit for bit there
+too. A step slower
+than ``straggler_factor`` times the running
 mean (an EMA) counts as a straggler. Both counts land in the port's
 registry (``train.stragglers``, ``train.restarts``). ``FaultInjector``
 is the port's shared injector (``repro_torch.fault``), re-exported here
@@ -21,7 +25,7 @@ from repro_torch.clock import now
 from repro_torch.fault import FaultInjector
 from repro_torch.obs import REGISTRY
 
-from .checkpoint import Checkpointer
+from .checkpoint import Checkpointer, spans_ranks
 
 __all__ = ["FaultInjector", "Supervisor"]
 
@@ -74,14 +78,17 @@ class Supervisor:
                 REGISTRY.counter("train.restarts").inc()
                 if restarts > self.max_restarts:
                     raise
-                latest = self.ckpt.latest_step()
+                # the save in flight first; across ranks every rank then
+                # takes rank 0's latest step
+                self.ckpt.wait()
+                latest = self.ckpt.latest_step(
+                    across=spans_ranks({"params": params}))
                 if latest is None:
                     # no checkpoint yet: go on from the state at hand,
                     # counting from the start again, as the reference does
                     step = start_step
                     history = []
                     continue
-                self.ckpt.wait()
                 latest, state, _ = self.ckpt.restore(
                     {"params": params, "opt_state": opt_state}, latest)
                 params = state["params"]

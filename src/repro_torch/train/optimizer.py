@@ -14,6 +14,12 @@ and cast to the parameter's and the state's dtype. The parameters and the
 moments are updated in place (no second copy of either); ``apply``
 returns the same parameters and a new :class:`OptState` holding the
 updated moments.
+
+Across ranks the parameters, the moments and the gradients are DTensors
+of the same placements (``launch/sharding``): ``apply`` updates each
+rank's local shards in place, and the global norm is taken over the
+whole leaves, each rank's shard sums of squares added up by one
+all-reduce over the mesh.
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
-__all__ = ["OptConfig", "OptState", "apply", "global_norm", "init",
+from repro_torch.models.sharding_utils import flat_group, is_dtensor
+
+__all__ = ["OptConfig", "OptState", "apply", "global_norm", "init", "local",
            "schedule"]
 
 
@@ -66,24 +74,67 @@ def _leaves(params) -> Dict[str, torch.Tensor]:
             else params)
 
 
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (its storage), a tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
 def init(cfg: OptConfig, params) -> OptState:
+    """Zero moments shaped (and, across ranks, placed) as the parameters;
+    the step a 0-d int32, replicated across ranks."""
     leaves = _leaves(params)
-    dev = next(iter(leaves.values())).device
+    first = next(iter(leaves.values()))
 
     def zeros():
-        return {k: torch.zeros(p.shape, dtype=cfg.state_dtype,
-                               device=p.device) for k, p in leaves.items()}
+        return {k: torch.zeros_like(p, dtype=cfg.state_dtype)
+                for k, p in leaves.items()}
 
-    return OptState(torch.zeros((), dtype=torch.int32, device=dev), zeros(),
-                    zeros())
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if is_dtensor(first):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = first.device_mesh
+        step = DTensor.from_local(step, mesh, [Replicate()] * mesh.ndim)
+    return OptState(step, zeros(), zeros())
+
+
+def _sq_sums_across_ranks(leaves) -> torch.Tensor:
+    """Each leaf's f32 sum of squares over the whole leaf [n], summed by
+    one all-reduce: a rank adds its shard's, or 0 where another rank holds
+    the same replica (it is not first on every dim the leaf is replicated
+    over)."""
+    import torch.distributed as dist
+
+    mesh = next(l.device_mesh for l in leaves if is_dtensor(l))
+    coord = mesh.get_coordinate()
+    parts = []
+    for leaf in leaves:
+        if is_dtensor(leaf):
+            if any(p.is_partial() for p in leaf.placements):
+                raise ValueError("global_norm: reduce the gradients to "
+                                 "their placements first")
+            first = all(c == 0 for c, p in zip(coord, leaf.placements)
+                        if p.is_replicate())
+        else:
+            first = all(c == 0 for c in coord)
+        sq = torch.sum(torch.square(local(leaf).float()))
+        parts.append(sq if first else torch.zeros_like(sq))
+    sums = torch.stack(parts)
+    dist.all_reduce(sums, group=flat_group(mesh))
+    return sums
 
 
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum, leaf after leaf in order, of each leaf's f32 sum
-    of squares."""
+    of squares (a plain 0-d tensor, the same on every rank)."""
+    leaves = list(tree.values())
+    if any(is_dtensor(l) for l in leaves):
+        leaves = list(_sq_sums_across_ranks(leaves).unbind(0))
+    else:
+        leaves = [torch.sum(torch.square(l.float())) for l in leaves]
     total = 0
-    for leaf in tree.values():
-        total = total + torch.sum(torch.square(leaf.float()))
+    for sq in leaves:
+        total = total + sq
     return torch.sqrt(total)
 
 
@@ -96,7 +147,7 @@ def apply(cfg: OptConfig, params, grads: Dict[str, torch.Tensor],
         raise ValueError(cfg.name)
     leaves = _leaves(params)
     step = state.step + 1
-    lr = schedule(cfg, step)
+    lr = schedule(cfg, local(step))
     gnorm = global_norm({k: grads[k] for k in leaves})
     if cfg.clip_norm:
         scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9),
@@ -104,13 +155,14 @@ def apply(cfg: OptConfig, params, grads: Dict[str, torch.Tensor],
     else:
         scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
     b1, b2 = cfg.b1, cfg.b2
-    t = step.float()
+    t = local(step).float()
     bc1 = 1.0 - torch.pow(b1, t)
     bc2 = 1.0 - torch.pow(b2, t)
 
     for k, p in leaves.items():
-        m, v = state.mu[k], state.nu[k]
-        gf = grads[k].float() * scale
+        p = local(p)
+        m, v = local(state.mu[k]), local(state.nu[k])
+        gf = local(grads[k]).float() * scale
         pf = p.float()
         if cfg.name == "adamw":
             m1 = b1 * m.float() + (1 - b1) * gf

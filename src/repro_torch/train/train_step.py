@@ -13,6 +13,14 @@ norm, the moments' decay and the weight decay.
 error_state])``. With ``grad_accum = A > 1`` the batch is split into A
 microbatches along its first axis; their gradients are summed in f32,
 divided by A and stay f32, and the metrics are the last microbatch's.
+
+Across ranks (the parameters DTensors laid out by ``launch/sharding``,
+the batch a DTensor sharded over the data axes, the step run inside
+``sharding_utils.use_mesh``) the forward and the backward run on
+DTensors: the loss is the global batch's, normalised by its global token
+count. Every gradient is then reduced to its parameter's placements
+(:func:`reduce_to`), so that the optimizer updates each rank's shards,
+and the metrics come back as plain tensors, the same on every rank.
 """
 
 from __future__ import annotations
@@ -24,11 +32,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as model_mod
+from repro_torch.models.sharding_utils import (constrain, flat_group,
+                                               is_dtensor)
 
 from . import compress as compress_mod
 from . import optimizer as opt_mod
 
-__all__ = ["build_train_step", "loss_and_grads"]
+__all__ = ["build_train_step", "loss_and_grads", "reduce_to"]
 
 
 @contextlib.contextmanager
@@ -59,6 +69,47 @@ def loss_and_grads(params: model_mod.Model, batch: Dict[str, torch.Tensor],
             grads)
 
 
+def reduce_to(g: torch.Tensor, placements) -> torch.Tensor:
+    """A DTensor gradient (partial sums) reduced to ``placements`` (its
+    parameter's): the partial sums over a dim the parameter is sharded on
+    are
+    reduce-scattered, those over a dim it is replicated on all-reduced;
+    where it is replicated on several such dims one all-reduce runs over
+    them all at once (``sharding_utils.flat_group``), so that every replica holds
+    the same bits."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = g.device_mesh
+    names = mesh.mesh_dim_names
+    joint = [i for i, (have, want) in enumerate(zip(g.placements,
+                                                    placements))
+             if have.is_partial() and want.is_replicate()]
+    if len(joint) > 1:
+        loc = g.to_local().clone()
+        dist.all_reduce(loc, group=flat_group(mesh, tuple(names[i]
+                                                          for i in joint)))
+        pl = [Replicate() if i in joint else p
+              for i, p in enumerate(g.placements)]
+        g = DTensor.from_local(loc, mesh, pl, run_check=False,
+                               shape=g.shape, stride=g.stride())
+    if tuple(g.placements) != tuple(placements):
+        g = g.redistribute(mesh, placements)
+    return g
+
+
+def _reduced(grads, leaves):
+    """Every DTensor gradient at its parameter's placements."""
+    return {k: reduce_to(g, leaves[k].placements) if is_dtensor(g) else g
+            for k, g in grads.items()}
+
+
+def _plain(metrics):
+    """Metrics as plain tensors, whole on every rank."""
+    return {k: v.full_tensor() if is_dtensor(v) else v
+            for k, v in metrics.items()}
+
+
 def build_train_step(cfg: ModelConfig, opt_cfg: opt_mod.OptConfig, *,
                      grad_accum: int = 1,
                      compression: bool = False) -> Callable:
@@ -68,20 +119,26 @@ def build_train_step(cfg: ModelConfig, opt_cfg: opt_mod.OptConfig, *,
 
     def single(params, batch):
         _, metrics, grads = loss_and_grads(params, batch, cfg)
-        return metrics, grads
+        return _plain(metrics), _reduced(grads, params.reference_leaves())
 
     def accumulated(params, batch):
         for name, x in batch.items():
             if x.shape[0] % grad_accum:
                 raise ValueError(f"batch {name} of {x.shape[0]} rows does "
                                  f"not split into {grad_accum} microbatches")
-        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        acc = {k: torch.zeros_like(p, dtype=torch.float32)
                for k, p in params.reference_leaves().items()}
         metrics = None
+        # on a mesh a microbatch is a run of the global batch's rows, as
+        # on one card: the batch is gathered, and each microbatch sharded
+        # over the data axes again (no-ops without a mesh)
+        whole = {name: constrain(x, *(None,) * x.ndim)
+                 for name, x in batch.items()}
         for i in range(grad_accum):
-            micro = {name: x.reshape((grad_accum, x.shape[0] // grad_accum)
-                                     + x.shape[1:])[i]
-                     for name, x in batch.items()}
+            micro = {name: constrain(
+                x.reshape((grad_accum, x.shape[0] // grad_accum)
+                          + x.shape[1:])[i], "batch", *(None,) * (x.ndim - 1))
+                for name, x in whole.items()}
             metrics, grads = single(params, micro)
             for k, g in grads.items():
                 acc[k].add_(g)

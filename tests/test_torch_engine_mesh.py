@@ -28,16 +28,14 @@ engine equals the one-card engine of as many shards bit for bit.
 import inspect
 import json
 import os
-import subprocess
-import sys
 import textwrap
-import time
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
+import _worlds
 from repro_torch.core import guarantees as G
 from repro_torch.core.engine import DistributedEngine
 from repro_torch.core.spec import IndexSpec, StoreSpec
@@ -207,30 +205,6 @@ REFERENCE = PRELUDE + textwrap.dedent("""
 """)
 
 
-def _run_all(procs, logs):
-    """Wait for every process; on the first failure or at TIMEOUT, kill
-    them all and fail with that process's log."""
-    end = time.monotonic() + TIMEOUT
-    while True:
-        codes = {name: p.poll() for name, p in procs.items()}
-        bad = [n for n, c in codes.items() if c not in (None, 0)]
-        late = time.monotonic() > end
-        if bad or late:
-            for p in procs.values():
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            which = bad[0] if bad else next(
-                n for n, c in codes.items() if c is None)
-            with open(logs[which]) as f:
-                tail = f.read()[-4000:]
-            pytest.fail(f"{which} {'failed' if bad else 'timed out'}:\n"
-                        f"{tail}")
-        if all(c == 0 for c in codes.values()):
-            return
-        time.sleep(0.1)
-
-
 @pytest.fixture(scope="module")
 def launched(tmp_path_factory):
     """Starts the port's world and the reference's meshes together;
@@ -243,18 +217,9 @@ def launched(tmp_path_factory):
     jobs = {f"rank{r}": ([PORT_RANK, str(r)], port_env)
             for r in range(WORLD)}
     jobs.update({f"ref_{m}": ([REFERENCE, m], ref_env) for m in MESHES})
-    procs, logs = {}, {}
-    for name, ((code, arg), env) in jobs.items():
-        logs[name] = os.path.join(out, name + ".log")
-        with open(logs[name], "w") as log:
-            procs[name] = subprocess.Popen(
-                [sys.executable, "-c", code, arg, out], stdout=log,
-                stderr=subprocess.STDOUT, env=env, cwd=out)
+    procs, logs = _worlds.start(jobs, out)
     yield out, procs, logs
-    for p in procs.values():
-        if p.poll() is None:
-            p.kill()
-            p.wait()
+    _worlds.stop(procs)
 
 
 @pytest.fixture(scope="module")
@@ -262,7 +227,7 @@ def port_world(launched):
     """Each rank's answers, by rank."""
     out, procs, logs = launched
     ranks = {n: p for n, p in procs.items() if n.startswith("rank")}
-    _run_all(ranks, logs)
+    _worlds.run_all(ranks, logs, TIMEOUT)
     return [dict(np.load(os.path.join(out, f"rank{r}.npz")))
             for r in range(WORLD)]
 
@@ -271,7 +236,8 @@ def port_world(launched):
 def reference(launched):
     """The reference's answers, by mesh, and its spill directory."""
     out, procs, logs = launched
-    _run_all({n: p for n, p in procs.items() if n.startswith("ref")}, logs)
+    _worlds.run_all({n: p for n, p in procs.items()
+                     if n.startswith("ref")}, logs, TIMEOUT)
     return {m: dict(np.load(os.path.join(out, f"ref_{m}.npz")))
             for m in MESHES}, out
 

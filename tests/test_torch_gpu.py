@@ -851,3 +851,33 @@ def test_decode_cell_measured_on_card(cuda):
     assert rep["peak_bytes"] > 0
     with pytest.raises(ValueError, match="on the card"):
         roofline.profile_device(step, 1, inputs=(toks.cpu(),))
+
+
+def test_fit_on_a_mesh_of_one_equals_the_one_card_fit(cuda):
+    """fit(mesh=) at world 1 over NCCL on a (1, 1) mesh, the smoke config
+    of minitron-8b in bf16: its parameters DTensors, its losses and
+    parameters the one-card fit's bit for bit (deterministic algorithms
+    on for both: the embedding's backward otherwise adds atomically)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.train import fit
+
+    cfg = get_smoke_config("minitron-8b")
+    kw = dict(steps=3, batch=2, seq=32, seed=4, device="cuda")
+    saved = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    M.init_world("cuda")
+    try:
+        mesh = M.make_mesh((1, 1), ("data", "model"), "cuda")
+        got = fit(cfg, mesh=mesh, **kw)
+        want = fit(cfg, **kw)
+        assert got["losses"] == want["losses"]
+        mine = got["params"].reference_leaves()
+        for k, v in want["params"].reference_leaves().items():
+            assert isinstance(mine[k], DTensor)
+            assert torch.equal(mine[k].to_local(), v), k
+    finally:
+        torch.use_deterministic_algorithms(saved)
+        M.destroy_world()

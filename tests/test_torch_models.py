@@ -369,13 +369,6 @@ def test_configs_copy_the_reference(arch):
                 assert a == b, (arch, f.name)
 
 
-def test_sequence_parallel_is_refused_on_one_card():
-    _, _, cfg, model = _models("minitron-8b")
-    sp = dataclasses.replace(cfg, sequence_parallel=True)
-    with pytest.raises(ValueError, match="sequence_parallel"):
-        M.prefill(model, {"tokens": torch.as_tensor(_tokens(cfg))}, sp)
-
-
 def test_params_from_jax_checks_every_leaf():
     jcfg, jp, cfg, model = _models("minitron-8b")
     tree = jax.tree_util.tree_map(np.asarray, jp)
