@@ -251,7 +251,15 @@ Phases, each of which fails the run by raising:
      bit-equal to the local quantize-dequantize at world 1. No kernel of
      the port lies on this path (launch counts all 0). The process group
      is destroyed after;
-  18. kernels at the main path's shapes: each kernel against its plain
+  18. the dry run at the production meshes (launch/dryrun.py,
+     launch/dryrun_search.py over launch/mesh.init_dry_world), a host
+     step in a subprocess of its own (a dry world cannot share a process
+     with the NCCL worlds of phases 16 and 17), bounded at DRY_TIMEOUT
+     seconds: ``lower_cell`` for gemma2-2b ``decode_32k`` at full width
+     and depth on the 16 x 16 dry mesh (meta tensors, no allocation) and
+     ``lower_search`` on the 2 x 16 x 16 one; each must give status ok
+     and record collectives. No kernel lies on this path;
+  19. kernels at the main path's shapes: each kernel against its plain
      version, timed with CUDA events beside the plain version, one
      PyTorch library call where one computes the same function (for K3
      the cuBLAS expanded form; cdist beside it as ``cdist_ms``), and the
@@ -266,7 +274,8 @@ Each phase's wall seconds are printed on a line of their own (``phase N
 name: S s``). Prints a ``{"serving": ...}`` line, an ``{"llm": ...}``
 line, a ``{"families": ...}`` line, an ``{"encdec": ...}`` line, a
 ``{"train": ...}`` line, a ``{"roofline": ...}`` line, a ``{"mesh": ...}``
-line, a ``{"train_mesh": ...}`` line, a ``{"kernels": [...]}`` line, then
+line, a ``{"train_mesh": ...}`` line, a ``{"dry_run": ...}`` line, a
+``{"kernels": [...]}`` line, then
 ``{"ok": true, "device": ...}`` as its last line. Exits non-zero without a result when no CUDA device
 is present or the package is missing.
 """
@@ -4488,6 +4497,67 @@ def phase_train_mesh(torch) -> dict:
         M.destroy_world()
 
 
+# the dry-run step's subprocess: its bound in seconds, and its program
+DRY_TIMEOUT = 120
+DRY_RUN = """
+import json
+from repro_torch.clock import now
+from repro_torch.launch import dryrun, dryrun_search
+from repro_torch.launch import mesh as M
+
+def brief(rep, t):
+    m = rep["memory_analysis"]
+    return {k: rep[k] for k in ("status", "world", "mesh", "mesh_axes",
+                                "bottleneck", "n_collectives",
+                                "wire_bytes_by_kind", "terms_seconds")} | {
+        "live_gib": m["live_bytes"] / 2 ** 30, "fits_hbm": m["fits_hbm"],
+        "seconds": t}
+
+t0 = now()
+mesh = M.make_production_mesh(dry=True)
+try:
+    cell = dryrun.lower_cell("gemma2-2b", "decode_32k", mesh)
+finally:
+    M.destroy_world()
+t1 = now()
+mesh = M.make_production_mesh(multi_pod=True, dry=True)
+try:
+    search = dryrun_search.lower_search(mesh)
+finally:
+    M.destroy_world()
+out = {"decode_32k": brief(cell, t1 - t0) | {"arch": cell["arch"]},
+       "search": brief(search, now() - t1)
+       | {"n_total_series": search["n_total_series"]}}
+print("DRY " + json.dumps(out))
+"""
+
+
+def phase_dry_run() -> dict:
+    """The dry run at the production meshes, in a subprocess bounded at
+    DRY_TIMEOUT seconds: gemma2-2b decode_32k on the 16 x 16 dry mesh and
+    the search cell on the 2 x 16 x 16 one. Raises unless both give
+    status ok and recorded collectives."""
+    import subprocess
+
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", DRY_RUN], env=env,
+                          capture_output=True, text=True,
+                          timeout=DRY_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"the dry run failed (rc {proc.returncode}):\n"
+                             f"{proc.stderr[-3000:]}")
+    line = next(ln for ln in proc.stdout.splitlines()
+                if ln.startswith("DRY "))
+    info = json.loads(line[len("DRY "):])
+    for name, rep in info.items():
+        if rep["status"] != "ok" or rep["n_collectives"] < 1:
+            raise AssertionError(f"dry run {name}: status {rep['status']}, "
+                                 f"{rep['n_collectives']} collectives")
+    return info
+
+
 def phase_done(n: int, name: str, t0: float) -> float:
     """A phase's wall seconds, printed on a line of their own."""
     sec = time.perf_counter() - t0
@@ -4941,6 +5011,20 @@ def main() -> int:
     print(json.dumps({"train_mesh": dict(tm_info, seconds=tm_s)}))
     phase_done(17, "training across ranks", tp)
 
+    # the dry run at the production meshes: host work on meta tensors over
+    # a dry world, in a subprocess; no kernel lies on this path
+    tp = time.perf_counter()
+    dry = phase_dry_run()
+    for name, rep in dry.items():
+        print(f"dry run {name} on {rep['mesh']} ({rep['world']} ranks): "
+              f"status {rep['status']}, {rep['n_collectives']} collectives "
+              f"{rep['wire_bytes_by_kind']}, live {rep['live_gib']:.2f} GiB "
+              f"a device, fits {rep['fits_hbm']}, bottleneck "
+              f"{rep['bottleneck']}, {rep['seconds']:.1f} s on the host")
+    dry_s = time.perf_counter() - tp
+    print(json.dumps({"dry_run": dict(dry, seconds=dry_s)}))
+    phase_done(18, "dry run at the production meshes", tp)
+
     tp = time.perf_counter()
     rows = kernel_rows(torch, ops, ref, build, data_t, q_t, built["isax2+"],
                        built["va+file"], k, counts, pq_in)
@@ -4964,7 +5048,7 @@ def main() -> int:
         print(f"  {r['name']} at {r['shape']}: {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     print(json.dumps({"kernel_shapes": shapes}))
-    phase_done(18, "kernels at the main path's shapes", tp)
+    phase_done(19, "kernels at the main path's shapes", tp)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""Dry run of every (architecture x input shape) cell on one H100, at full
-width and depth, with no allocation.
+"""Dry run of every (architecture x input shape) cell, at full width and
+depth, with no allocation: on one H100, or on the production meshes of
+256 and 512 ranks.
 
 The port's counterpart of ``src/repro/launch/dryrun.py``. Where the
 reference lowers and compiles the real entry point against
@@ -8,28 +9,46 @@ ShapeDtypeStruct stand-ins, the port runs it eagerly on ``meta`` tensors
 inputs of ``input_specs(cfg, shape)`` have shapes and dtypes and no
 storage, and every op computes only its output's shape. Around that run:
 
-* ``torch.utils.flop_counter.FlopCounterMode`` counts the operations
-  the run executes (the report's ``raw_counted_flops_per_device``);
-* :class:`LiveBytes`, the port's own ``TorchDispatchMode``, counts the
-  bytes of every storage an op creates, from its creation to its
-  release, and keeps the peak: the ``temp_bytes`` and ``output_bytes``
-  of ``memory_analysis`` (torch's ``MemTracker`` reports by module and
-  device; one peak beside the arguments is what the report needs).
+* :class:`OpCount` counts the operations the run executes (the report's
+  ``raw_counted_flops_per_device``) by ``FlopCounterMode``'s formulas;
+* :class:`LiveBytes` counts the bytes of every storage an op creates,
+  from its creation to its release, and keeps the peak: the
+  ``temp_bytes`` and ``output_bytes`` of ``memory_analysis`` (torch's
+  ``MemTracker`` reports by module and device; one peak beside the
+  arguments is what the report needs);
+* on a mesh, ``roofline.CollectiveRecorder`` records every collective.
+
+On a mesh (``launch/mesh.make_production_mesh(dry=True)``: a dry world
+of torch's ``fake`` backend, this process its rank 0) the parameters,
+the optimizer state and the inputs are laid out as DTensors by the
+mesh's rules before anything counts, and the entry point runs on them
+under ``sharding_utils.use_mesh``. DTensor runs each op as its local ops
+and collectives; all three counters let it do so first and count those,
+so every number is rank 0's: per device (torch's ``Shard`` gives a
+remainder to the first ranks, so rank 0's shard is the largest).
 
 The roofline terms come from the analytic models (``launch/analytic.py``)
-with the reference's inputs. ``lower_seconds`` is the meta run's host
-time; the port compiles nothing, so there is no ``compile_seconds``.
+with the reference's inputs at ``world`` = the mesh's size, the
+collective term from the recorded collectives. ``lower_seconds`` is the
+meta run's host time; the port compiles nothing, so there is no
+``compile_seconds``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
         --arch gemma2-2b --shape decode_32k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh both \\
+        --arch gemma2-2b --shape decode_32k
 
-Not ported (ROADMAP Queue 1, the multi-GPU item): the 256/512-chip
-meshes, ``parallelism="fsdp"``, ``rules_overrides`` and donation.
+Donation has no torch counterpart: the optimizer and a decode step
+update the parameters, the state and the cache in place, which is what
+``donate=True`` (the default) describes; with ``donate=False`` the
+step's new parameters and state (train) or cache (decode) are counted
+in ``output_bytes``, as an undonated step must hold them beside the old.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -39,6 +58,7 @@ import weakref
 from typing import Any, Dict, Optional
 
 import torch
+from torch._guards import detect_fake_mode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -46,13 +66,16 @@ from repro_torch.clock import now
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config, shape_applicable
 from repro_torch.launch import analytic
 from repro_torch.launch import roofline as roof
+from repro_torch.launch import sharding as shard_mod
+from repro_torch.launch.mesh import destroy_world, make_production_mesh
 from repro_torch.models import model as model_mod
 from repro_torch.models import params as params_mod
+from repro_torch.models import sharding_utils as su
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.train_step import build_train_step
 
-__all__ = ["GRAD_ACCUM", "LiveBytes", "OPT_DTYPE", "PastLimit", "fits_hbm",
-           "lower_cell", "main"]
+__all__ = ["GRAD_ACCUM", "LiveBytes", "MESHES", "OPT_DTYPE", "OpCount",
+           "PastLimit", "fits_hbm", "lower_cell", "main"]
 
 # per-arch microbatching for the train shape: keeps the remat carry
 # (num_blocks x microbatch x seq x d_model) within HBM (DESIGN.md §5.4)
@@ -78,6 +101,10 @@ OPT_DTYPE = {
 }
 
 OUT_DIR = "single_h100"
+# --mesh: the report directory of each mesh, and the production mesh
+# (multi_pod) it runs on; None for one card
+MESHES = {"h100": (OUT_DIR, None), "single": ("single_pod_16x16", False),
+          "multi": ("multi_pod_2x16x16", True)}
 
 
 def _opt_cfg(arch: str) -> opt_mod.OptConfig:
@@ -85,8 +112,48 @@ def _opt_cfg(arch: str) -> opt_mod.OptConfig:
 
 
 def _storages(tree):
+    """The storages of a tree's tensors; a DTensor's are its local
+    shard's (its own reports the whole tensor's size)."""
     for t in roof.tensors(tree):
+        if su.is_dtensor(t):
+            t = t.to_local()
         yield t.untyped_storage()
+
+
+def _dtensor_op(types) -> bool:
+    """Whether DTensor should run the op first: a DTensor operand."""
+    return any(getattr(t, "__name__", "") == "DTensor" for t in types)
+
+
+def _propagating() -> bool:
+    """Whether DTensor runs the op to find an output's shape: on fake
+    tensors at the global shape, which no rank computes or holds."""
+    return detect_fake_mode() is not None
+
+
+class OpCount(TorchDispatchMode):
+    """The operations a run executes, by ``FlopCounterMode``'s formulas
+    (``flop_registry``), in ``total``. On DTensors it counts the local ops
+    DTensor runs them as (it returns ``NotImplemented`` for a DTensor op
+    and sees what DTensor makes of it): one rank's operations, where
+    ``FlopCounterMode`` counts a sharded op at its global size."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = 0
+        self._registry = FlopCounterMode(display=False).flop_registry
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _dtensor_op(types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if _propagating():
+            return out
+        count = self._registry.get(func._overloadpacket)
+        if count is not None:
+            self.total += count(*args, **kwargs, out_val=out)
+        return out
 
 
 class LiveBytes(TorchDispatchMode):
@@ -96,7 +163,9 @@ class LiveBytes(TorchDispatchMode):
     share their base's). ``peak`` is the most held at once, ``now`` what
     is held at the moment; past ``limit`` bytes it raises
     :class:`PastLimit`. Works on ``meta`` tensors, whose storages have
-    sizes but no memory."""
+    sizes but no memory. On DTensors it counts the local tensors of the
+    local ops DTensor runs (``NotImplemented`` for a DTensor op, as
+    :class:`OpCount`): one rank's bytes."""
 
     def __init__(self, arguments, limit: Optional[int] = None):
         super().__init__()
@@ -106,7 +175,11 @@ class LiveBytes(TorchDispatchMode):
         self.limit = limit
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _dtensor_op(types):
+            return NotImplemented
         out = func(*args, **(kwargs or {}))
+        if _propagating():
+            return out
         for st in _storages(out):
             self._track(st)
         return out
@@ -154,6 +227,40 @@ class PastLimit(Exception):
     pass it."""
 
 
+# parallelism="fsdp": the reference's rules and activation overrides
+# (every mesh axis a data axis; weights gathered at use)
+_FSDP_RULES = ("heads", "kv_heads", "head_dim", "mlp", "vocab", "experts",
+               "ssm_inner")
+_FSDP_ACTS = ("heads", "kv_heads", "head_dim", "mlp", "experts",
+              "ssm_inner", "vocab", "seq_model")
+
+
+def _parallelism(mesh, parallelism: str, rules_overrides):
+    """(the rules' overrides, the activation map's) of ``parallelism``:
+    'tp' keeps the caller's rules; 'fsdp' shards the batch and the fsdp
+    dims over every mesh axis and nothing over 'model'."""
+    if parallelism == "tp":
+        return rules_overrides, None
+    if parallelism != "fsdp":
+        raise ValueError(f"parallelism {parallelism!r}: 'tp' or 'fsdp'")
+    all_axes = tuple(mesh.mesh_dim_names)
+    rules = dict(rules_overrides or {})
+    rules.update({"batch": all_axes, "fsdp": all_axes})
+    rules.update({k: None for k in _FSDP_RULES})
+    acts = {"batch": all_axes}
+    acts.update({k: () for k in _FSDP_ACTS})
+    return rules, acts
+
+
+def _lay_out(tree, placements, mesh):
+    """A tree of tensors as DTensors by a tree of placements of its
+    nesting; each rank keeps its shards (``sharding_utils._distribute``:
+    no collective)."""
+    if isinstance(tree, dict):
+        return {k: _lay_out(v, placements[k], mesh) for k, v in tree.items()}
+    return su._distribute(tree, mesh, placements)
+
+
 @dataclasses.dataclass
 class _Cell:
     cfg: Any
@@ -163,12 +270,18 @@ class _Cell:
     arguments: list            # params, inputs (and the OptState to train)
     argument_bytes: int
     acc_bytes: int             # the accumulated step's f32 gradient sum
+    mesh: Any = None
+    acts: Optional[dict] = None
 
     def run(self):
         """The cell's entry point on its arguments."""
         params, inputs = self.arguments[:2]
         cfg, shape = self.cfg, self.shape
         if shape.kind == "train":
+            if self.mesh is not None:  # the accumulated step, whole
+                step_fn = build_train_step(cfg, self.ocfg,
+                                           grad_accum=self.accum)
+                return step_fn(params, self.arguments[2], inputs)
             micro = {k: v[: shape.batch // self.accum]
                      for k, v in inputs.items()}
             step_fn = build_train_step(cfg, self.ocfg, grad_accum=1)
@@ -178,10 +291,28 @@ class _Cell:
         return model_mod.decode_step(params, inputs["tokens"],
                                      inputs["cache"], shape.seq - 1, cfg)
 
+    @contextlib.contextmanager
+    def context(self):
+        """The mesh and the activation map the run sees."""
+        with su.use_act_map(self.acts or {}), su.use_mesh(self.mesh):
+            yield
+
+    def donated(self) -> int:
+        """The bytes a step that may not update its arguments in place
+        holds anew: the parameters and the optimizer state (train), the
+        cache (decode)."""
+        if self.shape.kind == "train":
+            return _tree_bytes([self.arguments[0], self.arguments[2]])
+        if self.shape.kind == "decode":
+            return _tree_bytes(self.arguments[1]["cache"])
+        return 0
+
 
 def _cell(arch: str, shape_name: str, grad_accum: Optional[int],
-          arch_overrides):
-    """The cell's abstract arguments, or its skip report."""
+          arch_overrides, mesh=None, rules_overrides=None,
+          parallelism: str = "tp"):
+    """The cell's abstract arguments, laid out over ``mesh`` when there
+    is one, or its skip report."""
     cfg = get_config(arch)
     if arch_overrides:
         cfg = dataclasses.replace(cfg, **arch_overrides)
@@ -195,44 +326,75 @@ def _cell(arch: str, shape_name: str, grad_accum: Optional[int],
     ocfg = _opt_cfg(arch)
     params = model_mod.Model(
         cfg, params_mod.abstract(model_mod.model_specs(cfg)))
-    arguments = [params,
-                 params_mod.abstract(model_mod.input_specs(cfg, shape))]
+    inputs = params_mod.abstract(model_mod.input_specs(cfg, shape))
+    inputs.pop("pos", None)  # decode_step takes it as an int
+    acts = None
+    if mesh is not None:
+        rules_overrides, acts = _parallelism(mesh, parallelism,
+                                             rules_overrides)
+        rules = shard_mod.mesh_rules(mesh, rules_overrides)
+        shard_mod.distribute_params(
+            params, mesh, shard_mod.param_shardings(cfg, mesh, rules))
+        inputs = _lay_out(inputs, shard_mod.input_shardings(
+            cfg, shape, mesh, rules), mesh)
+    arguments = [params, inputs]
     acc_bytes = 0
     if shape.kind == "train":
+        # the moments take their parameters' placements (opt_shardings)
         arguments.append(opt_mod.init(ocfg, params))
-        if accum > 1:
+        if accum > 1 and mesh is None:
             acc_bytes = 4 * cfg.param_count()
     return _Cell(cfg, shape, accum, ocfg, arguments,
-                 _tree_bytes(arguments), acc_bytes)
+                 _tree_bytes(arguments), acc_bytes, mesh, acts)
 
 
-def lower_cell(arch: str, shape_name: str, *,
-               grad_accum: Optional[int] = None,
-               arch_overrides=None) -> Dict[str, Any]:
+def lower_cell(arch: str, shape_name: str, mesh=None, *,
+               rules_overrides=None, grad_accum: Optional[int] = None,
+               donate: bool = True, arch_overrides=None,
+               parallelism: str = "tp") -> Dict[str, Any]:
     """Run the cell's entry point on ``meta`` and return its roofline
     report: ``prefill``; ``decode_step`` at ``pos = seq - 1`` over the
-    abstract cache; or for ``train`` one microbatch of B / grad_accum
-    through ``build_train_step(cfg, ocfg, grad_accum=1)``, which ends in
-    ``optimizer.apply`` on an abstract OptState, its counted operations
-    scaled by grad_accum (``note`` says so). With grad_accum > 1 the
-    accumulated step's f32 gradient sum (4 bytes a parameter) is added
-    to ``temp_bytes``. A cell that ``shape_applicable`` refuses is
-    skipped with its reason."""
-    cell = _cell(arch, shape_name, grad_accum, arch_overrides)
+    abstract cache; or ``train``.
+
+    On one card (``mesh`` None) a train cell runs one microbatch of B /
+    grad_accum through ``build_train_step(cfg, ocfg, grad_accum=1)``,
+    which ends in ``optimizer.apply`` on an abstract OptState, its
+    counted operations scaled by grad_accum, and with grad_accum > 1 the
+    accumulated step's f32 gradient sum (4 bytes a parameter) is added to
+    ``temp_bytes`` (``note`` says so).
+
+    On a ``mesh`` (a DeviceMesh of a dry world) the parameters, the
+    optimizer state and the inputs are laid out by ``mesh_rules(mesh,
+    rules_overrides)`` first; a train cell runs the accumulated step
+    whole (``build_train_step(..., grad_accum=A)``), so that every
+    collective counts as often as it runs. ``parallelism="fsdp"`` applies
+    the reference's pure-FSDP rules and activation map. Every byte and
+    operation is rank 0's, ``world`` the mesh's size, and the collectives
+    recorded in the run fill ``n_collectives``, ``wire_bytes_*`` and the
+    collective term.
+
+    ``donate=False`` counts the step's new parameters and optimizer state
+    (train) or cache (decode) as ``output_bytes`` (the module docstring).
+    A cell that ``shape_applicable`` refuses is skipped with its
+    reason."""
+    cell = _cell(arch, shape_name, grad_accum, arch_overrides, mesh,
+                 rules_overrides, parallelism)
     if isinstance(cell, dict):
         return cell
     cfg, shape, accum = cell.cfg, cell.shape, cell.accum
-    world = 1
-    flops = FlopCounterMode(display=False)
+    world = 1 if mesh is None else mesh.size()
+    flops = OpCount()
     live = LiveBytes(cell.arguments)
+    rec = roof.CollectiveRecorder()
     t0 = now()
-    with flops, live:
+    with cell.context(), flops, live, rec:
         out = cell.run()
-        output_bytes = live.new_bytes(out)
+        new_bytes = live.new_bytes(out)
     t_lower = now() - t0
     del out
-    raw = float(flops.get_total_flops())
-    if shape.kind == "train":
+    output_bytes = new_bytes + (0 if donate else cell.donated())
+    raw = float(flops.total) * world
+    if shape.kind == "train" and mesh is None:
         raw *= accum
 
     mf = roof.model_flops(cfg, shape, cfg.active_param_count())
@@ -243,20 +405,33 @@ def lower_cell(arch: str, shape_name: str, *,
     ab = analytic.bytes_model(
         cfg, shape, param_count=cfg.param_count(), grad_accum=accum,
         opt_bytes_per_param=opt_bpp, remat=remat)
+    if shape.kind != "train":
+        hint = shape.kind
+    elif mesh is None:
+        hint = (f"grad_accum={accum}; counted over one microbatch "
+                f"x {accum}")
+    else:
+        hint = (f"grad_accum={accum}; counted over the accumulated step "
+                f"whole")
+    if rec.cpu_alltoalls:
+        hint += "; " + roof.ALLTOALL_NOTE.format(n=rec.cpu_alltoalls)
     report = roof.roofline_report(
         world=world, model_flops_global=mf,
         analytic_flops_global=af["flops_global"],
         analytic_bytes_global=ab["bytes_global"],
         memory={"argument_bytes": cell.argument_bytes,
                 "output_bytes": output_bytes,
-                "temp_bytes": live.peak - output_bytes + cell.acc_bytes},
+                "temp_bytes": live.peak - new_bytes + cell.acc_bytes},
         raw_flops=raw,
-        steps_hint=f"grad_accum={accum}; counted over one microbatch "
-                   f"x {accum}" if shape.kind == "train" else shape.kind,
+        collectives=roof.parse_collectives(rec.records, world),
+        steps_hint=hint,
     )
     report.update({
         "arch": arch, "shape": shape_name, "status": "ok",
-        "mesh": [world], "mesh_axes": [],
+        "mesh": [world] if mesh is None else [int(n) for n in
+                                             mesh.mesh.shape],
+        "mesh_axes": [] if mesh is None else list(mesh.mesh_dim_names),
+        "parallelism": parallelism,
         "lower_seconds": round(t_lower, 1),
         "total_params": cfg.param_count(),
         "active_params": cfg.active_param_count(),
@@ -264,13 +439,14 @@ def lower_cell(arch: str, shape_name: str, *,
     return report
 
 
-def fits_hbm(arch: str, shape_name: str) -> Dict[str, Any]:
-    """The memory half of :func:`lower_cell` alone, stopped as soon as
-    the live bytes pass ``HBM_BYTES``: ``{"fits_hbm": bool, "live_bytes":
-    int}``, the live bytes of the whole run when it fits (then equal to
-    ``lower_cell``'s) and where it stopped when it does not. A skipped
-    cell does not fit and carries its reason."""
-    cell = _cell(arch, shape_name, None, None)
+def fits_hbm(arch: str, shape_name: str, mesh=None) -> Dict[str, Any]:
+    """The memory half of :func:`lower_cell` alone (on ``mesh``, one
+    rank's), stopped as soon as the live bytes pass ``HBM_BYTES``:
+    ``{"fits_hbm": bool, "live_bytes": int}``, the live bytes of the
+    whole run when it fits (then equal to ``lower_cell``'s) and where it
+    stopped when it does not. A skipped cell does not fit and carries
+    its reason."""
+    cell = _cell(arch, shape_name, None, None, mesh)
     if isinstance(cell, dict):
         return {"fits_hbm": False, "live_bytes": 0,
                 "reason": cell["reason"]}
@@ -279,7 +455,7 @@ def fits_hbm(arch: str, shape_name: str) -> Dict[str, Any]:
         return {"fits_hbm": False, "live_bytes": held}
     live = LiveBytes(cell.arguments, limit=roof.HBM_BYTES - held)
     try:
-        with live:
+        with cell.context(), live:
             out = cell.run()
     except PastLimit:
         return {"fits_hbm": False, "live_bytes": held + live.peak}
@@ -287,52 +463,71 @@ def fits_hbm(arch: str, shape_name: str) -> Dict[str, Any]:
     return {"fits_hbm": True, "live_bytes": held + live.peak}
 
 
+def _print(rep: Dict[str, Any]) -> None:
+    if rep.get("status") == "ok":
+        t = rep["terms_seconds"]
+        m = rep["memory_analysis"]
+        print(f"memory {m}; counted flops "
+              f"{rep['raw_counted_flops_per_device']}; collectives "
+              f"{rep['n_collectives']} {rep['wire_bytes_by_kind']}")
+        print(
+            f"ok lower={rep['lower_seconds']}s "
+            f"compute={t['compute']:.4f}s "
+            f"memory={t['memory']:.4f}s "
+            f"coll={t['collective']:.4f}s "
+            f"bottleneck={rep['bottleneck']} "
+            f"useful={rep['useful_flops_ratio']:.2f} "
+            f"live={m['live_bytes'] / 2 ** 30:.1f}GiB "
+            f"fits={m['fits_hbm']}",
+            flush=True)
+    elif rep.get("status") == "skipped":
+        print(f"skipped: {rep['reason']}", flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None, help="one arch id (default all)")
     ap.add_argument("--shape", default=None, choices=list(SHAPES),
                     help="one shape (default all)")
+    ap.add_argument("--mesh", default="h100",
+                    choices=["h100", "single", "multi", "both"],
+                    help="one H100, or the 16 x 16 / 2 x 16 x 16 dry "
+                         "meshes")
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--grad-accum", type=int, default=None)
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else ARCH_IDS
     shapes = [args.shape] if args.shape else list(SHAPES)
+    names = ["single", "multi"] if args.mesh == "both" else [args.mesh]
 
-    outdir = os.path.join(args.out, OUT_DIR)
-    os.makedirs(outdir, exist_ok=True)
     failures = 0
-    for arch in archs:
-        for shape in shapes:
-            tag = f"{arch}__{shape}"
-            print(f"=== {OUT_DIR} :: {tag} ===", flush=True)
-            try:
-                rep = lower_cell(arch, shape, grad_accum=args.grad_accum)
-            except Exception as e:  # noqa: BLE001 — sweep must survive any one cell's meta-run failure; the error lands in its report JSON
-                failures += 1
-                rep = {"arch": arch, "shape": shape,
-                       "status": "failed", "error": str(e)[-2000:],
-                       "traceback": traceback.format_exc()[-4000:]}
-                print(f"FAILED: {e}", flush=True)
-            with open(os.path.join(outdir, tag + ".json"), "w") as f:
-                json.dump(rep, f, indent=2, default=str)
-            if rep.get("status") == "ok":
-                t = rep["terms_seconds"]
-                m = rep["memory_analysis"]
-                print(f"memory {m}; counted flops "
-                      f"{rep['raw_counted_flops_per_device']}")
-                print(
-                    f"ok lower={rep['lower_seconds']}s "
-                    f"compute={t['compute']:.4f}s "
-                    f"memory={t['memory']:.4f}s "
-                    f"coll={t['collective']:.4f}s "
-                    f"bottleneck={rep['bottleneck']} "
-                    f"useful={rep['useful_flops_ratio']:.2f} "
-                    f"live={m['live_bytes'] / 2 ** 30:.1f}GiB "
-                    f"fits={m['fits_hbm']}",
-                    flush=True)
-            elif rep.get("status") == "skipped":
-                print(f"skipped: {rep['reason']}", flush=True)
+    for name in names:
+        out_dir, multi = MESHES[name]
+        mesh = (None if multi is None
+                else make_production_mesh(multi_pod=multi, dry=True))
+        outdir = os.path.join(args.out, out_dir)
+        os.makedirs(outdir, exist_ok=True)
+        try:
+            for arch in archs:
+                for shape in shapes:
+                    tag = f"{arch}__{shape}"
+                    print(f"=== {out_dir} :: {tag} ===", flush=True)
+                    try:
+                        rep = lower_cell(arch, shape, mesh,
+                                         grad_accum=args.grad_accum)
+                    except Exception as e:  # noqa: BLE001 — sweep must survive any one cell's meta-run failure; the error lands in its report JSON
+                        failures += 1
+                        rep = {"arch": arch, "shape": shape,
+                               "status": "failed", "error": str(e)[-2000:],
+                               "traceback": traceback.format_exc()[-4000:]}
+                        print(f"FAILED: {e}", flush=True)
+                    with open(os.path.join(outdir, tag + ".json"), "w") as f:
+                        json.dump(rep, f, indent=2, default=str)
+                    _print(rep)
+        finally:
+            if mesh is not None:
+                destroy_world()
     print(f"done, failures={failures}")
     raise SystemExit(1 if failures else 0)
 

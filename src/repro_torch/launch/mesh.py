@@ -8,7 +8,9 @@ CPU); the mesh functions lay the world's ranks out row-major over named
 axes with ``init_device_mesh``, as ``jax.make_mesh`` lays out devices.
 Single pod: 16 x 16 = 256 ranks (data, model). Two pods: 2 x 16 x 16 =
 512 (pod, data, model). Which shard a rank owns on a mesh engine is the
-engine's own (core/ranks.py).
+engine's own (core/ranks.py). The dry run lays those meshes over a dry
+world (:func:`init_dry_world`): torch's ``fake`` backend, every rank of
+it but rank 0 imagined, in one process.
 """
 
 from __future__ import annotations
@@ -25,9 +27,9 @@ from repro_torch.core.ranks import rank_device
 # the reference's name for it here; the model layer owns it
 from repro_torch.models.params import mesh_axis_sizes
 
-__all__ = ["BACKENDS", "data_axes", "destroy_world", "init_world",
-           "make_mesh", "make_production_mesh", "make_test_mesh",
-           "mesh_axis_sizes"]
+__all__ = ["BACKENDS", "data_axes", "destroy_world", "init_dry_world",
+           "init_world", "make_mesh", "make_production_mesh",
+           "make_test_mesh", "mesh_axis_sizes"]
 
 # the backend that drives each device type's world
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
@@ -75,6 +77,31 @@ def init_world(device=device_mod.DEFAULT, *,
     return rank_device(dev)
 
 
+def init_dry_world(shape: Tuple[int, ...], axes: Tuple[str, ...]):
+    """A dry world: ``prod(shape)`` ranks of torch's ``fake`` backend, of
+    which this process is rank 0, and a CPU mesh of ``shape`` over named
+    ``axes`` on it. Its collectives move nothing and return their outputs
+    as they are, so a run on ``meta`` tensors over it issues every
+    collective a real world would, at rank 0's shapes: what the dry run
+    (``launch/dryrun.py``) counts. Only asked for by name, never reached
+    from :func:`init_world`; raises if a world is up.
+    :func:`destroy_world` tears it down."""
+    if dist.is_initialized():
+        raise RuntimeError("a dry world needs this process free of any "
+                           "other world")
+    # registers the fake backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
+
+
 def destroy_world() -> None:
     """Tear the world down (idempotent)."""
     if dist.is_initialized():
@@ -100,9 +127,14 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         device=device_mod.DEFAULT):
+                         device=device_mod.DEFAULT, dry: bool = False):
+    """The production mesh over the world's ranks; with ``dry`` over a
+    dry world of its 256 or 512 ranks (:func:`init_dry_world`), whatever
+    ``device`` says."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if dry:
+        return init_dry_world(shape, axes)
     return make_mesh(shape, axes, device)
 
 

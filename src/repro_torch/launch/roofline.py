@@ -5,15 +5,27 @@ per (arch x shape) cell, in seconds a step on one card:
 
     compute    = flops_per_device / PEAK_FLOPS
     memory     = bytes_per_device / HBM_BW
-    collective = wire_bytes_per_device / NVLINK_BW   (0 at world 1)
+    collective = wire_bytes_per_device / NVLINK_BW   (0 on one card)
 
 The compute and memory numerators are the analytic models
-(``launch/analytic.py``); the operations ``FlopCounterMode`` counted over
-the dry run's ``meta`` pass stay beside them as
-``raw_counted_flops_per_device``. Nothing counts bytes in an eager run,
-so ``raw_counted_bytes_per_device`` is None. There is no compiled
-program to read collectives from: on one card there are none, and the
-multi-GPU slice will read NCCL events (ROADMAP Queue 1).
+(``launch/analytic.py``); the operations counted over the dry run's
+``meta`` pass stay beside them as ``raw_counted_flops_per_device``.
+Nothing counts bytes in an eager run, so ``raw_counted_bytes_per_device``
+is None. There is no compiled program to read collectives from: the run
+itself issues them, and :class:`CollectiveRecorder` records each with
+its kind, local result bytes and group size as it runs (on one card
+there are none). :func:`parse_collectives` prices them with the
+reference's ring estimates:
+
+    all-reduce      2 * S * (g-1)/g      (reduce-scatter + all-gather)
+    all-gather      R * (g-1)/g          (R = gathered result)
+    reduce-scatter  R * (g-1)            (R = scattered result, in = R*g)
+    all-to-all      S * (g-1)/g
+    collective-permute  S
+
+One rate, ``NVLINK_BW``, serves every mesh axis, as the reference's one
+``ICI_BW`` does: optimistic for a 16-rank 'model' group, which spans two
+8-card nodes joined by InfiniBand.
 
 Where the reference has only the compiled artifact, the port also
 measures: :func:`profile_device` times a step on the card by CUDA
@@ -30,12 +42,15 @@ waste).
 
 from __future__ import annotations
 
+import dataclasses
 import subprocess
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["HBM_BW", "HBM_BYTES", "NVLINK_BW", "PEAK_F32_FLOPS",
+__all__ = ["ALLTOALL_NOTE", "CollectiveOp", "CollectiveRecorder",
+           "HBM_BW", "HBM_BYTES", "KINDS", "NVLINK_BW", "PEAK_F32_FLOPS",
            "PEAK_FLOPS", "add_measured", "card", "device_busy",
            "model_flops", "parse_collectives", "profile_device",
            "roofline_report", "tensors"]
@@ -72,9 +87,156 @@ def _wire_bytes(op: str, result_bytes: int, g: int) -> float:
     return float(result_bytes)
 
 
-def parse_collectives(*_args, **_kw) -> List[Any]:
-    raise NotImplementedError("collectives come from NCCL events across "
-                              "cards: ROADMAP Queue 1, the multi-GPU item")
+@dataclasses.dataclass
+class CollectiveOp:
+    op: str
+    bytes_result: int
+    group_size: int
+    wire_bytes: float
+    line: str
+
+
+# the reference's kind of each collective op (torch.distributed's c10d
+# ops, the functional ones DTensor issues, DTensor's own all-to-all)
+KINDS = {
+    "all-gather": (
+        "_c10d_functional.all_gather_into_tensor",
+        "_c10d_functional.all_gather_into_tensor_out",
+        "_c10d_functional.all_gather_into_tensor_coalesced",
+        "c10d.allgather_", "c10d._allgather_base_",
+        "c10d.allgather_coalesced_",
+        "c10d.allgather_into_tensor_coalesced_"),
+    "all-reduce": (
+        "_c10d_functional.all_reduce", "_c10d_functional.all_reduce_",
+        "_c10d_functional.all_reduce_coalesced",
+        "_c10d_functional.all_reduce_coalesced_",
+        "c10d.allreduce_", "c10d.allreduce_coalesced_"),
+    "reduce-scatter": (
+        "_c10d_functional.reduce_scatter_tensor",
+        "_c10d_functional.reduce_scatter_tensor_coalesced",
+        "c10d.reduce_scatter_", "c10d._reduce_scatter_base_",
+        "c10d.reduce_scatter_tensor_coalesced_"),
+    "all-to-all": (
+        "_c10d_functional.all_to_all_single", "_dtensor.shard_dim_alltoall",
+        "c10d.alltoall_", "c10d.alltoall_base_"),
+    "collective-permute": ("c10d.send", "c10d.recv_"),
+}
+_KIND_OF = {name: kind for kind, names in KINDS.items() for name in names}
+# the collective ops of no reference kind, priced at their result bytes
+_OTHER = ("_c10d_functional.broadcast", "_c10d_functional.broadcast_",
+          "c10d.broadcast_", "c10d.reduce_", "c10d.gather_",
+          "c10d.scatter_")
+
+# where a CPU mesh gathers in place of an all-to-all
+ALLTOALL_NOTE = ("DTensor ran {n} all-to-all(s) as all-gather + chunk on "
+                 "the CPU mesh; counted as the all-to-all NCCL runs, at "
+                 "its result bytes")
+
+
+def _group_size(args) -> int:
+    import torch.distributed as dist
+
+    for a in args:
+        if isinstance(a, torch.ScriptObject):  # a c10d op's group
+            return dist.ProcessGroup.unbox(a).size()
+    name = next((a for a in reversed(args) if isinstance(a, str)), None)
+    if name is not None:  # a functional op's group name
+        return torch._C._distributed_c10d._resolve_process_group(name).size()
+    return 1
+
+
+def _result_bytes(kind: str, out, args) -> int:
+    """The local bytes of a collective's result: the gathered output of an
+    all-gather, the scattered one of a reduce-scatter, the reduced tensor
+    of an all-reduce; a c10d op writes its outputs in place (its first
+    argument)."""
+    where = out
+    if isinstance(out, tuple) or out is None:  # c10d: (outputs, work)
+        where = args[0]
+    return sum(t.numel() * t.element_size() for t in tensors(where))
+
+
+class CollectiveRecorder(TorchDispatchMode):
+    """Every collective a run issues, from the run itself: a dispatch mode
+    that lets DTensor desugar first (it returns ``NotImplemented`` for
+    DTensor operands, as torch's ``CommDebugMode`` does) and so sees the
+    collectives DTensor issues inside an op beside those the caller
+    issues. ``records`` holds (kind, local result bytes, group size, op
+    name) in order.
+
+    On a CPU mesh DTensor runs a shard-to-shard all-to-all as an
+    all-gather and a chunk (gloo has no all-to-all); NCCL runs it as one
+    all-to-all, which is what is recorded, at the chunk's bytes, and
+    ``cpu_alltoalls`` counts them."""
+
+    def __init__(self):
+        super().__init__()
+        self.records: List[Tuple[str, int, int, str]] = []
+        self.cpu_alltoalls = 0
+        self._inside = 0
+        self._patched = None
+
+    def __enter__(self):
+        from torch.distributed.tensor import placement_types
+
+        orig = getattr(placement_types, "shard_dim_alltoall", None)
+        if orig is not None:
+            def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+                if mesh.device_type != "cpu":
+                    return orig(input, gather_dim, shard_dim, mesh, mesh_dim)
+                self._inside += 1
+                try:
+                    out = orig(input, gather_dim, shard_dim, mesh, mesh_dim)
+                finally:
+                    self._inside -= 1
+                self.cpu_alltoalls += 1
+                self.records.append(("all-to-all", out.numel()
+                                     * out.element_size(),
+                                     mesh.size(mesh_dim),
+                                     "all_gather + chunk on the CPU"))
+                return out
+
+            placement_types.shard_dim_alltoall = alltoall
+            self._patched = (placement_types, orig)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        if self._patched is not None:
+            mod, orig = self._patched
+            mod.shard_dim_alltoall = orig
+            self._patched = None
+        return super().__exit__(*exc)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(getattr(t, "__name__", "") == "DTensor" for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        name = str(func._overloadpacket)
+        name = name.removeprefix("torch.ops.")
+        kind = _KIND_OF.get(name, name if name in _OTHER else None)
+        if kind is not None and not self._inside:
+            self.records.append((kind, _result_bytes(kind, out, args),
+                                 _group_size(args), name))
+        return out
+
+
+def parse_collectives(records, world: int) -> List[CollectiveOp]:
+    """The reference's :class:`CollectiveOp` of every recorded collective
+    (``CollectiveRecorder.records``, or (kind, bytes, group) tuples), its
+    wire bytes by the reference's ring estimates (:func:`_wire_bytes`);
+    a group of no recorded size spans the world. ``line`` names the op
+    and its position in the run, as the reference's names the HLO
+    line."""
+    out = []
+    for i, rec in enumerate(records):
+        kind, rb, g = rec[:3]
+        g = g or world
+        name = rec[3] if len(rec) > 3 else kind
+        out.append(CollectiveOp(op=kind, bytes_result=int(rb),
+                                group_size=int(g),
+                                wire_bytes=_wire_bytes(kind, int(rb), int(g)),
+                                line=f"#{i} {name} group={g} bytes={rb}"))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -196,10 +358,17 @@ def roofline_report(
     memory: Dict[str, Any],
     raw_flops: Optional[float] = None,
     measured: Optional[Dict[str, Any]] = None,
+    collectives: Optional[List[CollectiveOp]] = None,
     steps_hint: str = "",
 ) -> Dict[str, Any]:
     """The three-term report of a cell, with the reference's keys.
 
+    ``collectives``: :func:`parse_collectives` of the run's records; the
+    collective term is their wire bytes a device over ``NVLINK_BW``, one
+    rate for every mesh axis as the reference has one ``ICI_BW``. A
+    16-rank 'model' group spans two 8-card nodes, whose links between
+    them (InfiniBand) are slower than NVLink: there the term is
+    optimistic.
     ``raw_flops``: the operations counted over the dry run (global).
     ``memory``: ``argument_bytes``, ``output_bytes`` and ``temp_bytes``
     (None where nothing ran) of the dry run; ``live_bytes``, ``fits_hbm``
@@ -211,9 +380,16 @@ def roofline_report(
     bytes_dev = (analytic_bytes_global / world
                  if analytic_bytes_global else 0.0)
 
+    colls = list(collectives or ())
+    wire_dev = sum(c.wire_bytes for c in colls)
+    by_kind: Dict[str, float] = {}
+    for c in colls:
+        by_kind[c.op] = by_kind.get(c.op, 0.0) + c.wire_bytes
+
     t_compute = flops_dev / PEAK_FLOPS
     t_memory = bytes_dev / HBM_BW
-    terms = {"compute": t_compute, "memory": t_memory, "collective": 0.0}
+    terms = {"compute": t_compute, "memory": t_memory,
+             "collective": wire_dev / NVLINK_BW}
     bottleneck = max(terms, key=terms.get)
     model_flops_dev = model_flops_global / world
     useful = model_flops_dev / flops_dev if flops_dev else 0.0
@@ -231,14 +407,16 @@ def roofline_report(
         "bytes_per_device": bytes_dev,
         "raw_counted_flops_per_device": raw_flops_dev,
         "raw_counted_bytes_per_device": None,
-        "wire_bytes_per_device": 0.0,
-        "wire_bytes_by_kind": {},
+        "wire_bytes_per_device": wire_dev,
+        "wire_bytes_by_kind": by_kind,
         "terms_seconds": terms,
         "bottleneck": bottleneck,
         "model_flops_global": model_flops_global,
         "useful_flops_ratio": useful,
-        "n_collectives": 0,
-        "top_collectives": [],
+        "n_collectives": len(colls),
+        "top_collectives": [
+            {"op": c.op, "wire_bytes": c.wire_bytes, "group": c.group_size}
+            for c in sorted(colls, key=lambda c: -c.wire_bytes)[:8]],
         "memory_analysis": mem,
         "note": steps_hint,
     }

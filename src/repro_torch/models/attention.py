@@ -28,7 +28,8 @@ import torch
 
 from .layers import rope, rounded, softcap
 from .params import ParamSpec
-from .sharding_utils import constrain, unshard_fsdp
+from .sharding_utils import (constrain, einsum, is_dtensor, unshard_fsdp,
+                             viewable)
 
 __all__ = ["NEG_INF", "AttnConfig", "attn_specs", "cross_attention",
            "cross_kv", "decode_attention", "self_attention"]
@@ -74,9 +75,14 @@ def attn_specs(cfg: AttnConfig, dtype) -> Dict[str, ParamSpec]:
 
 def _proj(x, w, heads: str = "heads"):
     """einsum('bsd,dhk->bshk') as one matmul, the weight's fsdp dim
-    gathered first (its ``heads`` dim, 'heads' or 'kv_heads', kept)."""
+    gathered first (its ``heads`` dim, 'heads' or 'kv_heads', kept). On a
+    mesh the einsum runs on the shards (``sharding_utils.einsum``): the
+    matmul's flattened (h, k) would be a strided shard where head_dim is
+    split."""
     d, h, k = w.shape
     w = unshard_fsdp(w, "fsdp", heads, "head_dim")
+    if is_dtensor(w):
+        return einsum("bsd,dhk->bshk", x, w.to(x.dtype))
     return torch.matmul(x, w.to(x.dtype).reshape(d, h * k)).unflatten(
         -1, (h, k))
 
@@ -104,19 +110,21 @@ def _project_qkv(params, x, cfg: AttnConfig, positions):
 
 
 def _group_q(q: torch.Tensor, num_kv: int) -> torch.Tensor:
-    """[B,S,H,D] -> [B,S,Kv,G,D]"""
+    """[B,S,H,D] -> [B,S,Kv,G,D]; on a mesh whose heads split does not
+    divide the kv heads, the heads are gathered first
+    (``sharding_utils.viewable``)."""
     b, s, h, d = q.shape
-    return q.reshape(b, s, num_kv, h // num_kv, d)
+    return viewable(q, 2, num_kv).reshape(b, s, num_kv, h // num_kv, d)
 
 
 def _scores(q5, k):
     # q5: [B,Sq,Kv,G,D], k: [B,Sk,Kv,D] -> [B,Kv,G,Sq,Sk]  (f32)
-    return torch.einsum("bqkgd,bskd->bkgqs", q5.float(), k.float())
+    return einsum("bqkgd,bskd->bkgqs", q5.float(), k.float())
 
 
 def _weighted(p, v):
     # p: [B,Kv,G,Sq,Sk] f32 -> the value dtype, v: [B,Sk,Kv,D]
-    return torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
+    return einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
 
 
 def _attend_dense(q, k, v, *, causal: bool, window: Optional[int],
@@ -184,9 +192,11 @@ def _attend_blockwise(q, k, v, *, causal: bool, window: Optional[int],
 
 def _out_proj(out, wo):
     """einsum('bshk,hkd->bsd') as one matmul, the weight's fsdp dim
-    gathered first."""
+    gathered first; on a mesh on the shards, as in :func:`_proj`."""
     h, k, d = wo.shape
     wo = unshard_fsdp(wo, "heads", "head_dim", "fsdp")
+    if is_dtensor(wo):
+        return einsum("bshk,hkd->bsd", out, wo.to(out.dtype))
     return torch.matmul(out.flatten(-2), wo.to(out.dtype).reshape(h * k, d))
 
 

@@ -27,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from . import attention as attn_mod
 from .layers import mlp_apply, mlp_specs, rmsnorm_apply, rmsnorm_specs
 from .params import ParamSpec, unstack
+from .sharding_utils import zeros
 from .transformer import attn_config, remat, stack_specs
 
 __all__ = ["alloc_cache", "dec_layer_specs", "decode_step", "decode_train",
@@ -118,7 +119,8 @@ def alloc_cache(cfg: ModelConfig, batch: int, capacity: int, frames: int,
     of ``capacity`` positions, cross keys and values of ``frames``."""
     kv = (cfg.num_layers, batch, capacity, cfg.num_kv_heads, cfg.head_dim)
     xkv = (cfg.num_layers, batch, frames, cfg.num_kv_heads, cfg.head_dim)
-    return {n: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+    lay = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    return {n: zeros(shape, lay, cfg.compute_dtype, device)
             for n, shape in (("k", kv), ("v", kv), ("ck", xkv),
                              ("cv", xkv))}
 

@@ -33,7 +33,7 @@ from . import transformer as tfm
 from .layers import (cross_entropy, embed_apply, embed_specs, logits_apply,
                      rmsnorm_apply, rmsnorm_specs, rounded)
 from .params import ParamSpec, Params, initialize
-from .sharding_utils import constrain
+from .sharding_utils import constrain, zeros
 from .ssm import ssm_cache_shape
 
 __all__ = ["FIRST_LAYER", "Model", "alloc_cache", "decode_cache_specs",
@@ -185,13 +185,18 @@ def alloc_cache(cfg: ModelConfig, batch: int, capacity: int, device,
                                       frames or cfg.encoder_frames, device)
 
     def entry(desc: LayerDesc, lead=()):
+        # the cache's specs (tfm.sublayer_cache_spec) for their logical
+        # names: on a mesh each rank allocates its shard
+        specs = tfm.sublayer_cache_spec(cfg, desc, batch, capacity)
         if desc.kind == "attn":
             shape = (batch, capacity, cfg.num_kv_heads, cfg.head_dim)
             shapes = {"k": shape, "v": shape}
         else:
             shapes = ssm_cache_shape(cfg.ssm, batch)
-        return {n: torch.zeros(lead + shape, dtype=cfg.compute_dtype,
-                               device=device) for n, shape in shapes.items()}
+        names = ("layers",) if lead else ()
+        return {n: zeros(lead + shape, names + specs[n].logical,
+                         cfg.compute_dtype, device)
+                for n, shape in shapes.items()}
 
     cache = {"blocks": {f"sub{i}": entry(d, (cfg.num_blocks,))
                         for i, d in enumerate(cfg.pattern)}}

@@ -24,9 +24,9 @@ import torch
 from .params import mesh_axis_sizes, placements, resolve_pspec
 
 __all__ = ["ACT_MAP", "ambient_axis_sizes", "ambient_mesh", "by_path",
-           "constrain",
-           "distribute_opt_state", "distribute_params", "flat_group",
-           "is_dtensor", "unshard_fsdp", "use_act_map", "use_mesh"]
+           "constrain", "distribute_opt_state", "distribute_params",
+           "einsum", "flat_group", "is_dtensor", "unshard_fsdp",
+           "use_act_map", "use_mesh", "viewable", "zeros"]
 
 # logical activation axis -> preferred mesh axes (first that divides)
 ACT_MAP = {
@@ -133,16 +133,182 @@ def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     mesh = ambient_mesh()
     if mesh is None or not is_dtensor(x):
         return x
-    if len(logical) != x.ndim:
-        raise ValueError(f"constrain: {len(logical)} names for a tensor of "
-                         f"shape {tuple(x.shape)}")
-    sizes = mesh_axis_sizes(mesh)
-    rules = {n: tuple(a for a in _act_axes(n) if a in sizes)
-             for n in logical if n is not None}
-    want = placements(resolve_pspec(logical, x.shape, rules, sizes), mesh)
+    want = _act_placements(logical, x.shape, mesh)
     if tuple(x.placements) == want:
         return x
     return x.redistribute(mesh, want)
+
+
+def _act_placements(logical, shape, mesh) -> tuple:
+    """The placements logical axis names resolve to on ``mesh`` by the
+    activation map."""
+    if len(logical) != len(shape):
+        raise ValueError(f"{len(logical)} logical names for a tensor of "
+                         f"shape {tuple(shape)}")
+    sizes = mesh_axis_sizes(mesh)
+    rules = {n: tuple(a for a in _act_axes(n) if a in sizes)
+             for n in logical if n is not None}
+    return placements(resolve_pspec(logical, shape, rules, sizes), mesh)
+
+
+def zeros(shape, logical, dtype, device) -> torch.Tensor:
+    """``torch.zeros(shape)``; on an ambient mesh a DTensor laid out as
+    :func:`constrain` lays out ``logical``, of which this rank allocates
+    only its shard (torch's ``Shard`` sizes: the first ranks take a
+    remainder)."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
+    want = _act_placements(logical, shape, mesh)
+    local = list(shape)
+    for i, (p, c) in enumerate(zip(want, mesh.get_coordinate())):
+        if p.is_shard():
+            n, m = local[p.dim], mesh.size(i)
+            full = -(-n // m)
+            local[p.dim] = max(0, min(full, n - c * full))
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return DTensor.from_local(
+        torch.zeros(local, dtype=dtype, device=device), mesh, want,
+        run_check=False, shape=shape, stride=tuple(reversed(stride)))
+
+
+def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum``, run on each rank's shards when the operands are
+    DTensors on the ambient mesh that split each mesh dim along at most
+    one letter: each shard's product is the product's shard where that
+    letter is in the output, and a partial sum of it where it is
+    contracted, with no collective here. A mesh dim on which one operand
+    is a partial sum and the others are whole gives a partial sum too
+    (the product is linear in each operand); a partial sum on a mesh dim
+    that another operand splits, or a second one, is summed first (an
+    all-reduce), and where two operands split a mesh dim along different
+    letters the smaller is gathered there (an all-gather).
+
+    DTensor's own einsum flattens letters into one dim for its ``bmm`` or
+    ``mm``; a letter split over 'pod' and 'data' beside one split over
+    'model', or a split letter inside a flattened pair, becomes a strided
+    shard, whose plan DTensor searches for minutes on a three-axis mesh.
+    An operand replicated on a mesh dim where a letter it holds is split
+    is sliced to its shard there (no collective); a strided shard or a
+    reduction other than a sum takes ``torch.einsum`` on the DTensors. Without a mesh,
+    or on plain tensors, this is ``torch.einsum``."""
+    mesh = ambient_mesh()
+    if mesh is None or not any(is_dtensor(t) for t in operands):
+        return torch.einsum(equation, *operands)
+    out = _einsum_on_shards(equation, operands, mesh)
+    return torch.einsum(equation, *operands) if out is None else out
+
+
+_PARTIAL = object()
+
+
+def _einsum_on_shards(equation: str, operands, mesh):
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    lhs, out_letters = equation.replace(" ", "").split("->")
+    ins = lhs.split(",")
+    if len(ins) != len(operands) or "." in equation:
+        return None
+    operands = list(operands)
+    for t in operands:
+        if is_dtensor(t) and t.device_mesh != mesh:
+            return None
+    # the letter each mesh dim splits, or _PARTIAL where one operand is a
+    # partial sum there (the product is linear in it). Where operands
+    # split a mesh dim along different letters the largest operand's
+    # split stays and the others are gathered there; a partial sum beside
+    # a split, or beside another partial sum, is summed first
+    split: list = [None] * mesh.ndim
+    for i in range(mesh.ndim):
+        shards, partial, undo = [], [], []
+        for j, (letters, t) in enumerate(zip(ins, operands)):
+            p = t.placements[i] if is_dtensor(t) else Replicate()
+            if isinstance(p, Replicate):
+                continue
+            if isinstance(p, Partial) and p.reduce_op == "sum":
+                partial.append(j)
+            elif type(p) is Shard:
+                shards.append((t.numel(), j, letters[p.dim]))
+            else:
+                return None  # a strided shard, another reduction
+        if shards:
+            split[i] = max(shards)[2]
+            undo = [j for _, j, letter in shards if letter != split[i]]
+        elif partial:
+            split[i] = _PARTIAL
+            partial = partial[1:]
+        for j in undo + partial:  # an all-gather, an all-reduce
+            pl = list(operands[j].placements)
+            pl[i] = Replicate()
+            operands[j] = operands[j].redistribute(mesh, pl)
+    local = []
+    for letters, t in zip(ins, operands):
+        want = tuple(
+            Shard(letters.index(s)) if s not in (None, _PARTIAL)
+            and s in letters else Replicate() for s in split)
+        if is_dtensor(t):
+            want = tuple(p if isinstance(p, Partial) else w
+                         for p, w in zip(t.placements, want))
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        if tuple(t.placements) != want:
+            if any(not isinstance(p, Replicate) for p, w in
+                   zip(t.placements, want) if p != w):
+                return None
+            t = t.redistribute(mesh, want)  # a local slice
+        # the gradient of a shard is the shard's; that of an operand every
+        # rank uses whole beside a split or a partial sum is a partial sum
+        # over the ranks; that of a partial sum is whole on every rank
+        grad = tuple(
+            Replicate() if isinstance(p, Partial)
+            else Partial() if isinstance(p, Replicate) and s is not None
+            else p for p, s in zip(want, split))
+        local.append(t.to_local(grad_placements=grad))
+    sizes = {}
+    for letters, t in zip(ins, operands):
+        sizes.update(zip(letters, t.shape))
+    shape = torch.Size(sizes[c] for c in out_letters)
+    # a split letter contracted, or a partial sum in, gives a partial sum
+    placements = [Replicate() if s is None
+                  else Shard(out_letters.index(s))
+                  if s is not _PARTIAL and s in out_letters
+                  else Partial() for s in split]
+    res = torch.einsum(equation, *local)
+    # the global strides lay the dims out in the order the local ones do
+    stride, acc = [0] * len(shape), 1
+    for d in sorted(range(len(shape)), key=lambda d: (res.stride(d), -d)):
+        stride[d] = acc
+        acc *= shape[d]
+    return DTensor.from_local(res, mesh, placements, run_check=False,
+                              shape=shape, stride=tuple(stride))
+
+
+def viewable(x: torch.Tensor, dim: int, parts: int) -> torch.Tensor:
+    """``x``, ready to have dim ``dim`` viewed as (parts, rest): a DTensor
+    split there into a number of pieces that does not divide ``parts``
+    (16 ranks over 8 kv heads) cannot be viewed so, and is gathered along
+    it first (a pin); anything else is returned as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    dim = dim % x.ndim
+    mesh = x.device_mesh
+    pieces = 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            pieces *= mesh.size(i)
+    if parts % pieces == 0:
+        return x
+    return x.redistribute(mesh, [Replicate() if p.is_shard(dim) else p
+                                 for p in x.placements])
 
 
 def unshard_fsdp(w: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:

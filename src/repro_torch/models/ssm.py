@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from .layers import rmsnorm_apply, rmsnorm_specs
 from .params import ParamSpec
-from .sharding_utils import constrain, unshard_fsdp
+from .sharding_utils import constrain, einsum, unshard_fsdp, viewable
 
 __all__ = ["SSMConfig", "ssd_chunked", "ssd_reference", "ssm_apply",
            "ssm_cache_shape", "ssm_decode_step", "ssm_specs"]
@@ -104,9 +104,13 @@ def _project(params, u: torch.Tensor, cfg: SSMConfig):
 
 def _heads(t: torch.Tensor, cfg: SSMConfig, groups: bool) -> torch.Tensor:
     """[..., H·P] -> [..., H, P], or [..., G·N] -> [..., H, N] with each
-    group repeated over its H/G heads (``jnp.repeat``, not tile)."""
+    group repeated over its H/G heads (``jnp.repeat``, not tile); on a
+    mesh whose split of the last dim does not divide H (or G) it is
+    gathered first (``sharding_utils.viewable``)."""
     if not groups:
+        t = viewable(t, -1, cfg.n_heads)
         return t.reshape(t.shape[:-1] + (cfg.n_heads, cfg.head_dim))
+    t = viewable(t, -1, cfg.n_groups)
     g = t.reshape(t.shape[:-1] + (cfg.n_groups, cfg.d_state))
     return g.repeat_interleave(cfg.n_heads // cfg.n_groups, dim=-2)
 
@@ -153,13 +157,13 @@ def ssd_chunked(xh: torch.Tensor, bh: torch.Tensor, ch: torch.Tensor,
     # (the reference exps first: the same values, NaN gradients there)
     decay = torch.exp(torch.where(mask[None, None, :, :, None], li,
                                   -torch.inf))
-    scores = torch.einsum("bnihd,bnjhd->bnijh", cc, bc)  # C_i . B_j
+    scores = einsum("bnihd,bnjhd->bnijh", cc, bc)  # C_i . B_j
     att = scores * decay * dtc[:, :, None, :, :]  # weighted by dt_j
-    y_intra = torch.einsum("bnijh,bnjhp->bnihp", att, xc)
+    y_intra = einsum("bnijh,bnjhp->bnihp", att, xc)
 
     # ---- chunk states: sum_j exp(total - cum_j) dt_j B_j (x) x_j
     w = torch.exp(total[:, :, None, :] - cum) * dtc  # [B,nc,Q,H]
-    states = torch.einsum("bnjhd,bnjhp->bnhdp", w[..., None] * bc, xc)
+    states = einsum("bnjhd,bnjhp->bnhdp", w[..., None] * bc, xc)
 
     # ---- inter-chunk recurrence over nc, emitting the state that enters
     # each chunk
@@ -173,7 +177,7 @@ def ssd_chunked(xh: torch.Tensor, bh: torch.Tensor, ch: torch.Tensor,
     h_enter = torch.stack(enter, dim=1)  # [B,nc,H,N,P]
 
     # ---- inter-chunk contribution: C_i . (exp(cum_i) * h_enter)
-    y_inter = torch.einsum("bnihd,bnhdp->bnihp",
+    y_inter = einsum("bnihd,bnhdp->bnihp",
                            cc * torch.exp(cum)[..., None], h_enter)
     return (y_intra + y_inter).reshape(b, s, h, p), hcur
 
@@ -251,7 +255,7 @@ def _conv_step(state: torch.Tensor, xnew: torch.Tensor,
                kernel: torch.Tensor):
     """state [B, W-1, C], xnew [B, C] -> (new state, y [B, C])."""
     full = torch.cat([state, xnew[:, None, :]], dim=1)  # [B, W, C]
-    return full[:, 1:, :], torch.einsum("bwc,wc->bc", full, kernel)
+    return full[:, 1:, :], einsum("bwc,wc->bc", full, kernel)
 
 
 def ssm_decode_step(params, u: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -275,9 +279,9 @@ def ssm_decode_step(params, u: torch.Tensor, cache: Dict[str, torch.Tensor],
 
     h = cache["h"].float()  # [B,H,N,P]
     decay = torch.exp(dtf * a[None, :])  # [B,H]
-    upd = torch.einsum("bh,bhd,bhp->bhdp", dtf, bh, xh)
+    upd = einsum("bh,bhd,bhp->bhdp", dtf, bh, xh)
     h = h * decay[:, :, None, None] + upd
-    y = torch.einsum("bhd,bhdp->bhp", ch, h)
+    y = einsum("bhd,bhdp->bhp", ch, h)
     y = y + params["D"].float()[None, :, None] * xh
     y = y.reshape(b, cfg.d_inner).to(dtype)
     y = rmsnorm_apply(params["norm"], y * F.silu(z))

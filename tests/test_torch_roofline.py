@@ -118,5 +118,20 @@ def test_no_measurement_without_the_card():
 
 
 def test_collectives_wait_for_the_multi_gpu_item():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        roofline.parse_collectives("")
+    """The multi-GPU item has come: the collectives are recorded from the
+    run (``CollectiveRecorder``) and ``parse_collectives`` prices each
+    record as the reference prices the same op read from its HLO."""
+    hlo = ("  %ar = f32[1024]{0} all-reduce(f32[1024]{0} %x), "
+           "replica_groups=[2,4]<=[8], to_apply=%add\n"
+           "  %ag = bf16[64,32]{1,0} all-gather(bf16[16,32]{1,0} %y), "
+           "replica_groups=[2,4]<=[8], dimensions={0}\n"
+           "  %rs = f32[8]{0} reduce-scatter(f32[64]{0} %z), "
+           "replica_groups=[1,8]<=[8], dimensions={0}, to_apply=%add\n")
+    want = j_roofline.parse_collectives(hlo, 8)
+    got = roofline.parse_collectives(
+        [("all-reduce", 4096, 4), ("all-gather", 4096, 4),
+         ("reduce-scatter", 32, 8)], 8)
+    assert [(c.op, c.bytes_result, c.group_size, c.wire_bytes)
+            for c in got] == [(c.op, c.bytes_result, c.group_size,
+                               c.wire_bytes) for c in want]
+    assert roofline.parse_collectives([], 8) == []
