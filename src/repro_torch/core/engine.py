@@ -78,16 +78,28 @@ serves its shard with failover, and the answers and OocStats are
 gathered and folded in shard order. Collectives run where the engine
 runs: NCCL on the card, gloo on the CPU; a failed one raises.
 
-With tracing on (``repro_torch.obs``) a query is an ``engine.query``
-span (``path`` resident, resident+delta or ooc; a traced resident query
-reads its visit totals back, which waits for the device); out of core it
-holds one ``engine.shard`` span per shard served, over that shard's
+With tracing on (``repro_torch.obs``), or a profiler recording, a query
+is an ``engine.query`` span (``path`` resident, resident+delta or ooc; a
+resident query's visit totals are read from the device only when the
+spans are read, so the span does not wait for it). A resident query
+holds each shard's ``search.*`` loop spans (core/search.py), then
+``engine.merge``; on a mesh ``engine.sync_bsf`` and
+``engine.gather_results`` hold the collectives. Out of core it holds one
+``engine.shard`` span per shard served, over that shard's
 ``ooc.query``, and a compaction is a ``delta.compact`` span, the
-reference's taxonomy (docs/OBSERVABILITY.md).
+reference's taxonomy (docs/OBSERVABILITY.md). A build is an
+``engine.build`` span over ``engine.histogram``, ``index.build`` and
+``engine.pad``, whose host seconds are also the always-on gauges
+``engine.build_s{phase}`` (histogram, index, pad, total). The resident
+path's waits for the device count under ``search.host_reads{site}``:
+``shard_ids`` and ``dead_mask`` (the write tier's masks, once a kill
+set), ``mesh_flag`` (each lockstep step's all_reduce) and
+``mesh_gather`` (the answers' all_gather).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import shutil
@@ -113,6 +125,24 @@ from .index import FrozenIndex
 from .indexes import dstree, isax, vafile
 from .search import Refinement, SearchResult, pad_mask, search_impl
 from .spec import IndexSpec, StoreSpec
+
+_SHARD_IDS = obs.read_site("shard_ids")
+_DEAD_MASK = obs.read_site("dead_mask")
+_MESH_FLAG = obs.read_site("mesh_flag")
+_MESH_GATHER = obs.read_site("mesh_gather")
+_BUILD_S = {p: REGISTRY.gauge("engine.build_s", phase=p)
+            for p in ("histogram", "index", "pad", "total")}
+
+
+@contextlib.contextmanager
+def _build_phase(phase: str, name: str):
+    """One phase of a build: the span ``name``, and its host seconds in
+    the gauge ``engine.build_s{phase}`` (the device work it launched may
+    end later; the build's uploads from host memory wait for theirs)."""
+    t0 = obs.now()
+    with obs.span(name):
+        yield
+    _BUILD_S[phase].set(obs.now() - t0)
 
 
 class QueryResult(NamedTuple):
@@ -200,10 +230,11 @@ def _group_min_bsf(lay, bsf: torch.Tensor, going: bool) -> tuple:
     ``go`` in one all_reduce(MIN), the flag as 0 for a rank that
     stepped. A step in which no shard stepped changes nothing, so the
     loop may end one collective after the reference's."""
-    v = torch.cat([bsf, torch.full((1,), 0.0 if going else 1.0,
-                                   dtype=bsf.dtype, device=bsf.device)])
-    dist.all_reduce(v, op=dist.ReduceOp.MIN, group=lay.group)
-    return v[:-1], float(v[-1]) == 0.0
+    with obs.span("engine.sync_bsf"):
+        v = torch.cat([bsf, torch.full((1,), 0.0 if going else 1.0,
+                                       dtype=bsf.dtype, device=bsf.device)])
+        dist.all_reduce(v, op=dist.ReduceOp.MIN, group=lay.group)
+        return v[:-1], obs.host_read(_MESH_FLAG, float, v[-1]) == 0.0
 
 
 def _gather_results(lay, res: SearchResult) -> list:
@@ -212,15 +243,19 @@ def _gather_results(lay, res: SearchResult) -> list:
     counts, lb_computed and iterations travel as one int32 tensor."""
     b, k = res.ids.shape
     dev = res.ids.device
-    mine = torch.cat([
-        res.dists.float().contiguous().view(torch.int32).reshape(-1),
-        res.ids.to(torch.int32).reshape(-1),
-        res.leaves_visited.to(torch.int32), res.rows_scanned.to(torch.int32),
-        torch.tensor([res.lb_computed, res.iterations], dtype=torch.int32,
-                     device=dev)])
-    parts = [torch.empty_like(mine) for _ in lay.shard_of]
-    dist.all_gather(parts, mine, group=lay.group)
-    tails = torch.stack([p[-2:] for p in parts]).tolist()
+    with obs.span("engine.gather_results"):
+        mine = torch.cat([
+            res.dists.float().contiguous().view(torch.int32).reshape(-1),
+            res.ids.to(torch.int32).reshape(-1),
+            res.leaves_visited.to(torch.int32),
+            res.rows_scanned.to(torch.int32),
+            obs.host_read(_MESH_GATHER, torch.tensor,
+                          [res.lb_computed, res.iterations],
+                          dtype=torch.int32, device=dev)])
+        parts = [torch.empty_like(mine) for _ in lay.shard_of]
+        dist.all_gather(parts, mine, group=lay.group)
+        tails = obs.host_read(_MESH_GATHER,
+                              torch.stack([p[-2:] for p in parts]).tolist)
     out = [None] * lay.count
     for p, (lb, iters), si in zip(parts, tails, lay.shard_of):
         d, i, lv, rs, _ = p.split([b * k, b * k, b, b, 2])
@@ -411,6 +446,11 @@ class DistributedEngine:
         widest shard of the mesh; a shard is spilled by its writer rank,
         and after a barrier every rank's ``shard_dirs`` lists every
         shard."""
+        with _build_phase("total", "engine.build"):
+            self._build(data, seed, index, store)
+        return self
+
+    def _build(self, data, seed, index, store) -> None:
         ispec = index or IndexSpec(method=self.method)
         sspec = (store or StoreSpec()).validate()
         dev = device_mod.resolve(self.device)
@@ -427,58 +467,61 @@ class DistributedEngine:
         s = self.n_shards
         lay = self._layout
         bounds = np.linspace(0, n, s + 1).astype(np.int64)
-        sample = data[np.random.default_rng(0).choice(
-            n, min(n, 100_000), replace=False)]
-        hist = build_histogram(sample, seed, device=dev)  # global
-        if lay is not None:
-            for t in hist:
-                dist.broadcast(t, src=0)
+        with _build_phase("histogram", "engine.histogram"):
+            sample = data[np.random.default_rng(0).choice(
+                n, min(n, 100_000), replace=False)]
+            hist = build_histogram(sample, seed, device=dev)  # global
+            if lay is not None:
+                for t in hist:
+                    dist.broadcast(t, src=0)
         builder = _BUILDERS[ispec.method]
         write = sspec.spill_dir is not None and (lay is None or lay.writer)
 
-        shards = []
-        for si in range(s) if lay is None else (lay.index,):
-            lo, hi = int(bounds[si]), int(bounds[si + 1])
-            idx = builder(data[lo:hi], hist=hist, seed=seed, device=dev,
-                          **ispec.build_params)
-            ids = torch.where(idx.ids >= 0, idx.ids + lo, -1)
-            idx = dataclasses.replace(idx, ids=ids.to(torch.int32),
-                                      n_total=n)
-            if write:
-                d = idx.save(os.path.join(sspec.spill_dir, f"shard_{si:04d}"),
-                             codec=sspec.codec)
-                # replicas are file copies of the saved store (same ids,
-                # histogram and pq codebook), under replicas/rN so that
-                # open_spill cannot take them for more shards
-                for rep in range(1, sspec.replicas):
-                    rd = os.path.join(sspec.spill_dir, "replicas",
-                                      f"r{rep}", f"shard_{si:04d}")
-                    if os.path.isdir(rd):
-                        shutil.rmtree(rd)
-                    shutil.copytree(d, rd)
-            if sspec.keep_resident:
-                shards.append(idx)
-            del idx
-        self.shard_dirs = self.shard_replica_dirs = None
-        if sspec.spill_dir is not None:
-            if lay is not None:
-                dist.barrier()  # every writer has saved its shard
-            self.shard_dirs = tuple(
-                os.path.join(sspec.spill_dir, f"shard_{si:04d}")
-                for si in range(s))
-            self.shard_replica_dirs = _discover_replicas(sspec.spill_dir,
-                                                         self.shard_dirs)
-        self.resident = None
-        if shards:
-            n_leaves = max(sh.num_leaves for sh in shards)
-            n_rows = max(sh.data.shape[0] for sh in shards)
-            if lay is not None:
-                wide = torch.tensor([n_leaves, n_rows], device=dev)
-                dist.all_reduce(wide, op=dist.ReduceOp.MAX)
-                n_leaves, n_rows = wide.tolist()
-            self.resident = tuple(_pad_shard(sh, n_leaves, n_rows)
-                                  for sh in shards)
-        return self
+        with _build_phase("index", "index.build"):
+            shards = []
+            for si in range(s) if lay is None else (lay.index,):
+                lo, hi = int(bounds[si]), int(bounds[si + 1])
+                idx = builder(data[lo:hi], hist=hist, seed=seed, device=dev,
+                              **ispec.build_params)
+                ids = torch.where(idx.ids >= 0, idx.ids + lo, -1)
+                idx = dataclasses.replace(idx, ids=ids.to(torch.int32),
+                                          n_total=n)
+                if write:
+                    d = idx.save(os.path.join(sspec.spill_dir,
+                                              f"shard_{si:04d}"),
+                                 codec=sspec.codec)
+                    # replicas are file copies of the saved store (same ids,
+                    # histogram and pq codebook), under replicas/rN so that
+                    # open_spill cannot take them for more shards
+                    for rep in range(1, sspec.replicas):
+                        rd = os.path.join(sspec.spill_dir, "replicas",
+                                          f"r{rep}", f"shard_{si:04d}")
+                        if os.path.isdir(rd):
+                            shutil.rmtree(rd)
+                        shutil.copytree(d, rd)
+                if sspec.keep_resident:
+                    shards.append(idx)
+                del idx
+        with _build_phase("pad", "engine.pad"):
+            self.shard_dirs = self.shard_replica_dirs = None
+            if sspec.spill_dir is not None:
+                if lay is not None:
+                    dist.barrier()  # every writer has saved its shard
+                self.shard_dirs = tuple(
+                    os.path.join(sspec.spill_dir, f"shard_{si:04d}")
+                    for si in range(s))
+                self.shard_replica_dirs = _discover_replicas(sspec.spill_dir,
+                                                             self.shard_dirs)
+            self.resident = None
+            if shards:
+                n_leaves = max(sh.num_leaves for sh in shards)
+                n_rows = max(sh.data.shape[0] for sh in shards)
+                if lay is not None:
+                    wide = torch.tensor([n_leaves, n_rows], device=dev)
+                    dist.all_reduce(wide, op=dist.ReduceOp.MAX)
+                    n_leaves, n_rows = wide.tolist()
+                self.resident = tuple(_pad_shard(sh, n_leaves, n_rows)
+                                      for sh in shards)
 
     # ------------------------------------------------------ the write tier
     def _base_meta(self) -> tuple:
@@ -685,7 +728,8 @@ class DistributedEngine:
         if hit is not None and hit[0] == snap.kills_version:
             return hit[1]
         mask = self._unit_dead(unit, born_seq, snap)
-        out = pad_mask(mask, pad_to, dev) if mask.any() else None
+        out = obs.host_read(_DEAD_MASK, pad_mask, mask, pad_to, dev) \
+            if mask.any() else None
         self._dead_dev[unit] = (snap.kills_version, out)
         return out
 
@@ -790,11 +834,7 @@ class DistributedEngine:
             return self._query_ooc(queries, k, g, visit_batch, opts, mut)
         if self.resident is None:
             raise ValueError("no resident shards: build() first")
-        if not obs.enabled():
-            return self._query_resident(queries, k, g, visit_batch,
-                                        sync_bsf, share_gathers, mut)
-        # traced: the visit totals are read back, which waits for the
-        # device, so the span covers the query's device work
+        # the visit totals stay on the device until the spans are read
         attrs = {} if mut is None else dict(
             delta_rows=mut.snap.live_rows, segments=len(mut.snap.segments))
         with obs.span("engine.query",
@@ -803,8 +843,8 @@ class DistributedEngine:
                       **attrs) as sp:
             out = self._query_resident(queries, k, g, visit_batch, sync_bsf,
                                        share_gathers, mut)
-            sp.set(leaves_visited=int(out.leaves_visited.sum()),
-                   rows_scanned=int(out.rows_scanned.sum()))
+            sp.set(leaves_visited=out.leaves_visited,
+                   rows_scanned=out.rows_scanned)
         return out
 
     def _query_resident(self, queries, k: int, g: Guarantee,
@@ -828,7 +868,8 @@ class DistributedEngine:
             for si, idx in enumerate(self.resident):
                 unit = ("rshard", si)
                 if unit not in self._ids_host:  # one device read a shard
-                    self._ids_host[unit] = idx.ids.cpu().numpy()
+                    self._ids_host[unit] = obs.host_read(
+                        _SHARD_IDS, lambda t: t.cpu().numpy(), idx.ids)
                 dead[si] = self._unit_dead_dev(unit, 0, mut.snap,
                                                idx.data.shape[0], dev)
         runs = [Refinement(refine.ResidentSource(idx, dead[si]), q, k,
@@ -862,17 +903,18 @@ class DistributedEngine:
         if lay is not None:
             res = _gather_results(lay, res[0])
         b = q.shape[0]
-        md = torch.stack([r.dists for r in res], 1).reshape(b, -1)
-        mi = torch.stack([r.ids for r in res], 1).reshape(b, -1)
-        o = torch.sort(md, dim=1, stable=True).indices[:, :k]
-        out = QueryResult(
-            dists=md.gather(1, o), ids=mi.gather(1, o),
-            leaves_visited=torch.stack([r.leaves_visited for r in res]).sum(
-                0, dtype=torch.int32),
-            rows_scanned=torch.stack([r.rows_scanned for r in res]).sum(
-                0, dtype=torch.int32),
-            lb_computed=sum(r.lb_computed for r in res),
-            iterations=tuple(r.iterations for r in res))
+        with obs.span("engine.merge"):
+            md = torch.stack([r.dists for r in res], 1).reshape(b, -1)
+            mi = torch.stack([r.ids for r in res], 1).reshape(b, -1)
+            o = torch.sort(md, dim=1, stable=True).indices[:, :k]
+            out = QueryResult(
+                dists=md.gather(1, o), ids=mi.gather(1, o),
+                leaves_visited=torch.stack(
+                    [r.leaves_visited for r in res]).sum(0, dtype=torch.int32),
+                rows_scanned=torch.stack(
+                    [r.rows_scanned for r in res]).sum(0, dtype=torch.int32),
+                lb_computed=sum(r.lb_computed for r in res),
+                iterations=tuple(r.iterations for r in res))
         if mut is not None:
             out = self._fold_mutable(out, mut, q, k, g, visit_batch,
                                      resident=True)
@@ -1008,8 +1050,9 @@ class DistributedEngine:
                     # the mask is the shard's, shared by its copies
                     unit = ("sshard", fctx.shard)
                     if unit not in self._ids_host:
-                        self._ids_host[unit] = \
-                            store.resident.ids.cpu().numpy()
+                        self._ids_host[unit] = obs.host_read(
+                            _SHARD_IDS, lambda t: t.cpu().numpy(),
+                            store.resident.ids)
                     dead = self._unit_dead_dev(unit, 0, mut.snap,
                                                store.mmap.shape[0],
                                                store.device)

@@ -37,9 +37,11 @@ from typing import NamedTuple, Optional, Protocol, runtime_checkable
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ops
 
 INF = float("inf")
+_REFILL = obs.read_site("refill")
 
 
 # ---------------------------------------------------------------- frontier
@@ -104,10 +106,11 @@ def refill_need(st: FrontierState, active: torch.Tensor,
 def frontier_tick(st: FrontierState, lb_sq: torch.Tensor,
                   active: torch.Tensor, *, v: int, lookahead: int) -> tuple:
     """Refill the lanes that :func:`refill_need` names (skipped when no
-    lane needs it), then emit this iteration's [B, V] leaf window."""
+    lane needs it: the host reads that flag, ``search.host_reads`` site
+    ``refill``), then emit this iteration's [B, V] leaf window."""
     f = st.lb.shape[1]
     need = refill_need(st, active, lookahead)
-    if bool(need.any()):
+    if obs.host_read(_REFILL, bool, need.any()):
         nv, ni = frontier_select(lb_sq, st.thr_lb, st.thr_id, f)
         sel = need[:, None]
         st = st._replace(lb=torch.where(sel, nv, st.lb),

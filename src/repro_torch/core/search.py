@@ -16,6 +16,15 @@
      reads two flags from the device per iteration (does any lane need a
      frontier refill, is any lane still active).
 
+Every wait for the device in the loop goes through ``obs.host_read`` and
+counts under ``search.host_reads{site}`` (always on): ``refill`` and
+``settle`` once an iteration, ``eps_mult`` and ``r_delta`` (two scalars
+copied up from pageable host memory) once a :class:`Refinement`, and
+``stats`` where the out-of-core telemetry is read. The phases are spans
+(``search.filter``, ``search.advance`` holding ``search.frontier``,
+``search.gather`` and ``search.score``, ``search.settle``,
+``search.finish``) that never wait for the device (obs/trace.py).
+
 :class:`Refinement` is that loop over a leaf source (core.refine), one
 iteration a step, and :func:`refine_loop` runs it to its end: over the
 index's own rows for :func:`search`, or over a store on disk streamed
@@ -43,6 +52,15 @@ from . import refine
 from .guarantees import EXACT, Guarantee
 from .histogram import r_delta
 from .index import FrozenIndex, index_device
+
+_EPS_MULT = obs.read_site("eps_mult")
+_R_DELTA = obs.read_site("r_delta")
+_SETTLE = obs.read_site("settle")
+_STATS = obs.read_site("stats")
+_ITERATIONS = obs.REGISTRY.counter("search.iterations")
+_POOLED_ROWS = obs.REGISTRY.counter("search.pooled_rows")
+_POOLED_PAIRS = obs.REGISTRY.counter("search.pooled_pairs")
+POOL_FOLD = 16  # iterations whose coop masks are held before they count
 
 
 class SearchResult(NamedTuple):
@@ -80,6 +98,16 @@ class Refinement:
     :meth:`finish`; this costs a few small device operations per
     iteration, so the resident search passes None.
 
+    With share_gathers and a span sink on (``obs.sink_on()``: tracing
+    enabled or a profiler recording), each iteration's coop mask and
+    active lanes are kept (references, no launch), and every
+    :data:`POOL_FOLD` iterations and at :meth:`finish` their distinct
+    valid pooled rows, and those rows times the lanes still active, are
+    summed on the device into ``search.pooled_rows`` and
+    ``search.pooled_pairs`` (a dozen small launches, read to the host
+    when those counters are read): the work the cooperative score pass
+    does for the answers.
+
     fault: the injection hook (duck-typed; serve.fault.FaultContext in
     the engine): ``fault.check("gather")`` runs before every gather and
     ``fault.check("score")`` before every scoring step, where injected
@@ -98,52 +126,57 @@ class Refinement:
                  frontier: Optional[int] = None,
                  stats: Optional[OocStats] = None, fault=None,
                  n_override: Optional[int] = None):
-        b = queries.shape[0]
-        dev = queries.device
-        index = src.resident
-        L = index.num_leaves
-        v = visit_batch
-        depth = src.depth
-        self.src, self.k, self.v, self.L = src, k, v, L
-        self.share = share_gathers
-        self.stats, self.fault = stats, fault
+        with obs.span("search.filter"):
+            b = queries.shape[0]
+            dev = queries.device
+            index = src.resident
+            L = index.num_leaves
+            v = visit_batch
+            depth = src.depth
+            self.src, self.k, self.v, self.L = src, k, v, L
+            self.share = share_gathers
+            self.stats, self.fault = stats, fault
 
-        self.ctx = src.query_ctx(queries)
-        self.lb_sq = refine.leaf_lower_bounds(index, queries)  # [B, L]
+            self.ctx = src.query_ctx(queries)
+            self.lb_sq = refine.leaf_lower_bounds(index, queries)  # [B, L]
 
-        # the window covers this iteration's visits, the next lower bound
-        # and the prefetcher's lookahead of ``depth`` windows
-        la = (1 + depth) * v
-        if frontier is None:
-            F = min(max(refine.default_frontier(L, v), la + v), L)
-        else:
-            F = min(max(int(frontier), min(la + v, L) if depth else v + 1),
-                    L)
-        self.lookahead = min(la, F)
-        self.eps_mult = torch.tensor((1.0 + epsilon) ** 2,
-                                     dtype=torch.float32, device=dev)
-        rd = r_delta(index.hist, delta, index.n_total
-                     if n_override is None else n_override).to(dev)
-        self.rd_sq = rd * rd
-        self.max_rank = L if nprobe is None else min(nprobe, L)
+            # the window covers this iteration's visits, the next lower bound
+            # and the prefetcher's lookahead of ``depth`` windows
+            la = (1 + depth) * v
+            if frontier is None:
+                F = min(max(refine.default_frontier(L, v), la + v), L)
+            else:
+                F = min(max(int(frontier), min(la + v, L) if depth else v + 1),
+                        L)
+            self.lookahead = min(la, F)
+            self.eps_mult = obs.host_read(
+                _EPS_MULT, torch.tensor, (1.0 + epsilon) ** 2,
+                dtype=torch.float32, device=dev)
+            n = index.n_total if n_override is None else n_override
+            rd = obs.host_read(_R_DELTA,
+                               lambda: r_delta(index.hist, delta, n).to(dev))
+            self.rd_sq = rd * rd
+            self.max_rank = L if nprobe is None else min(nprobe, L)
 
-        kk = src.track_width(k)
-        self.rank = torch.zeros(b, dtype=torch.long, device=dev)
-        self.top_d = torch.full((b, kk), refine.INF, device=dev)
-        self.top_i = torch.full((b, kk), -1, dtype=torch.int32, device=dev)
-        self.active = torch.ones(b, dtype=torch.bool, device=dev)
-        self.leaves = torch.zeros(b, dtype=torch.int32, device=dev)
-        self.rows = torch.zeros(b, dtype=torch.int32, device=dev)
-        self.fr = refine.frontier_init(b, F, dev)
-        self.steps = torch.arange(v, device=dev)[None, :]
-        if stats is not None:
-            # refills, then (delta, epsilon, exhausted) stops, then the
-            # slack sums at delta and epsilon stops
-            self.counts = torch.zeros(4, dtype=torch.long, device=dev)
-            self.slack = torch.zeros(2, dtype=torch.float64, device=dev)
-        self.iterations = 0
-        self.go = True
-        self._next_lb = self._exhausted = None
+            kk = src.track_width(k)
+            self.rank = torch.zeros(b, dtype=torch.long, device=dev)
+            self.top_d = torch.full((b, kk), refine.INF, device=dev)
+            self.top_i = torch.full((b, kk), -1, dtype=torch.int32, device=dev)
+            self.active = torch.ones(b, dtype=torch.bool, device=dev)
+            self.leaves = torch.zeros(b, dtype=torch.int32, device=dev)
+            self.rows = torch.zeros(b, dtype=torch.int32, device=dev)
+            self.fr = refine.frontier_init(b, F, dev)
+            self.steps = torch.arange(v, device=dev)[None, :]
+            if stats is not None:
+                # refills, then (delta, epsilon, exhausted) stops, then the
+                # slack sums at delta and epsilon stops
+                self.counts = torch.zeros(4, dtype=torch.long, device=dev)
+                self.slack = torch.zeros(2, dtype=torch.float64, device=dev)
+            # (coop mask, active lanes) of the iterations not yet counted
+            self.pooled = [] if share_gathers and obs.sink_on() else None
+            self.iterations = 0
+            self.go = True
+            self._next_lb = self._exhausted = None
 
     @property
     def bsf(self) -> torch.Tensor:
@@ -153,18 +186,25 @@ class Refinement:
     def advance(self) -> None:
         """The first half of an iteration: every active lane gathers its
         next window, scores it into its top-k, and the frontier moves."""
+        with obs.span("search.advance"):
+            self._advance()
+
+    def _advance(self) -> None:
         src, v, active = self.src, self.v, self.active
         self.iterations += 1
+        _ITERATIONS.inc()
         if self.stats is not None:
             self.counts[0] += refine.refill_need(self.fr, active,
                                                  self.lookahead).sum()
-        fr, leaf = refine.frontier_tick(self.fr, self.lb_sq, active, v=v,
-                                        lookahead=self.lookahead)
+        with obs.span("search.frontier"):
+            fr, leaf = refine.frontier_tick(self.fr, self.lb_sq, active, v=v,
+                                            lookahead=self.lookahead)
         in_range = (self.rank[:, None] + self.steps) < self.max_rank
         ok = in_range & active[:, None]
         if self.fault is not None:
             self.fault.check("gather")
-        g = src.gather(leaf, ok)
+        with obs.span("search.gather"):
+            g = src.gather(leaf, ok)
         if src.depth:
             # stage the next ``depth`` windows while this one is scored
             windows = []
@@ -176,13 +216,19 @@ class Refinement:
             src.prefetch(windows)
         if self.fault is not None:
             self.fault.check("score")
-        # with share_gathers, copies of a leaf pooled twice this iteration
-        # are masked so the pool's ids stay distinct; copies across
-        # iterations are merged away by id
-        self.top_d, self.top_i = src.score(
-            self.ctx, g,
-            refine.coop_mask(leaf, ok, g.valid) if self.share
-            else g.valid, self.top_d, self.top_i, share=self.share)
+        with obs.span("search.score"):
+            valid = g.valid
+            if self.share:
+                # copies of a leaf pooled twice this iteration are masked
+                # so the pool's ids stay distinct; copies across
+                # iterations are merged away by id
+                valid = refine.coop_mask(leaf, ok, g.valid)
+                if self.pooled is not None:
+                    self.pooled.append((valid, active))
+                    if len(self.pooled) == POOL_FOLD:
+                        self._count_pool()
+            self.top_d, self.top_i = src.score(self.ctx, g, valid, self.top_d,
+                                               self.top_i, share=self.share)
         self.leaves += torch.where(active, in_range.sum(1, dtype=torch.int32),
                                    0)
         self.rows += torch.where(active, g.valid.sum(1, dtype=torch.int32), 0)
@@ -195,14 +241,16 @@ class Refinement:
         """The second half: stop the lanes that meet a predicate against
         ``bsf`` [B] (:attr:`bsf`, or a kth-best over several shards, no
         larger). Returns :attr:`go`."""
-        next_lb = self._next_lb
-        stop = refine.stop_mask(next_lb, self._exhausted, bsf, self.eps_mult,
-                                self.rd_sq)
-        if self.stats is not None:
-            _attribute_stops(self.active & stop, next_lb, bsf, self.eps_mult,
-                             self.rd_sq, self.counts, self.slack)
-        self.active = self.active & ~stop
-        self.go = bool(self.active.any())
+        with obs.span("search.settle"):
+            next_lb = self._next_lb
+            stop = refine.stop_mask(next_lb, self._exhausted, bsf,
+                                    self.eps_mult, self.rd_sq)
+            if self.stats is not None:
+                _attribute_stops(self.active & stop, next_lb, bsf,
+                                 self.eps_mult, self.rd_sq, self.counts,
+                                 self.slack)
+            self.active = self.active & ~stop
+            self.go = obs.host_read(_SETTLE, bool, self.active.any())
         return self.go
 
     def step(self) -> bool:
@@ -212,23 +260,29 @@ class Refinement:
     def finish(self) -> SearchResult:
         """The finalized result (``stats.bytes_read_rerank`` holds what
         the source's finalize read)."""
+        with obs.span("search.finish"):
+            return self._finish()
+
+    def _finish(self) -> SearchResult:
         b = self.top_d.shape[0]
         top_d, top_i, extra = self.src.finalize(self.ctx, self.top_d,
                                                 self.top_i, self.k)
         stats, L = self.stats, self.L
         if stats is not None:
-            c = self.counts.tolist()
-            sl = self.slack.tolist()
-            lv = int(self.leaves.sum())
+            c = obs.host_read(_STATS, self.counts.tolist)
+            sl = obs.host_read(_STATS, self.slack.tolist)
+            lv = obs.host_read(_STATS, int, self.leaves.sum())
             stats.iterations = self.iterations
             stats.frontier_refills = c[0]
             stats.leaves_visited = lv
-            stats.rows_scanned = int(self.rows.sum())
+            stats.rows_scanned = obs.host_read(_STATS, int, self.rows.sum())
             stats.pruning_ratio = 1.0 - lv / (b * L) if b * L else 0.0
             stats.stop_delta, stats.stop_epsilon, stats.stop_exhausted = c[1:]
             stats.delta_slack = sl[0] / c[1] if c[1] else 0.0
             stats.eps_slack = sl[1] / c[2] if c[2] else 0.0
             stats.bytes_read_rerank = extra
+        if self.pooled:
+            self._count_pool()
         return SearchResult(
             dists=torch.sqrt(top_d),
             ids=top_i,
@@ -237,6 +291,16 @@ class Refinement:
             lb_computed=L,
             iterations=self.iterations,
         )
+
+    def _count_pool(self) -> None:
+        """Add the kept iterations' pooled rows and pairs to the counters,
+        on the device, and drop them."""
+        masks, lanes = zip(*self.pooled)
+        self.pooled = []
+        rows = torch.stack(masks).sum((1, 2), dtype=torch.int32)
+        pairs = rows * torch.stack(lanes).sum(1)
+        _POOLED_ROWS.inc(rows.sum())
+        _POOLED_PAIRS.inc(pairs.sum())
 
 
 def refine_loop(src, queries: torch.Tensor, k: int, **kw) -> SearchResult:
@@ -297,26 +361,21 @@ def search(index: FrozenIndex, queries, k: int, g: Guarantee = EXACT, *,
     place of ``index.n_total``.
 
     With tracing on (``repro_torch.obs``) the call is a ``core.search``
-    span, which reads the visit totals back and so waits for the device;
-    untraced calls pay one bool check."""
+    span; its visit totals are read from the device when the spans are
+    read, so the call does not wait for the device; untraced calls pay
+    one check."""
     dev = index_device(index, device)
     g = g.validate()
     q = torch.as_tensor(queries, device=dev)
-
-    def run():
-        return search_impl(index, q, k, delta=g.delta, epsilon=g.epsilon,
-                           nprobe=g.nprobe, visit_batch=visit_batch,
-                           share_gathers=share_gathers, frontier=frontier,
-                           dead=pad_mask(dead, index.data.shape[0], dev),
-                           n_override=n_override)
-
-    if not obs.enabled():
-        return run()
     with obs.span("core.search", lanes=q.shape[0], k=k,
                   leaves=index.num_leaves) as sp:
-        res = run()
-        sp.set(leaves_visited=int(res.leaves_visited.sum()),
-               rows_scanned=int(res.rows_scanned.sum()))
+        res = search_impl(index, q, k, delta=g.delta, epsilon=g.epsilon,
+                          nprobe=g.nprobe, visit_batch=visit_batch,
+                          share_gathers=share_gathers, frontier=frontier,
+                          dead=pad_mask(dead, index.data.shape[0], dev),
+                          n_override=n_override)
+        sp.set(leaves_visited=res.leaves_visited,
+               rows_scanned=res.rows_scanned)
     return res
 
 

@@ -6,6 +6,10 @@ seconds), named after a hash of its source, the headers and the flags,
 under ``<repo>/build/repro_torch/``. Building happens at first use, or for
 every source at once through :func:`build_all`. Nothing here runs when
 the package is imported.
+
+Each nvcc run is a ``kernels.compile`` span and counts in
+``kernels.compiles{kernel}`` (always on: which kernel was built again);
+loading a library is a ``kernels.load`` span.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from repro_torch import obs
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -79,7 +85,9 @@ def _compile(name: str) -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *FLAGS, "-I", str(CSRC), "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    obs.REGISTRY.counter("kernels.compiles", kernel=name).inc()
+    with obs.span("kernels.compile", kernel=name):
+        res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
     out.with_suffix(".log").write_text(res.stderr)
@@ -88,7 +96,8 @@ def _compile(name: str) -> Path:
 
 
 def _bind(name: str, path: Path) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(path))
+    with obs.span("kernels.load", kernel=name):
+        lib = ctypes.CDLL(str(path))
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)

@@ -34,7 +34,13 @@ _N_BUCKETS = 480               # covers (1e-9, ~1e9] + underflow at [0]
 
 
 class Counter:
-    """Monotonic counter with an owner-managed window mark."""
+    """Monotonic counter with an owner-managed window mark.
+
+    An increment may be a 0-d device tensor: the total then stays on its
+    device, each further increment one small addition there, and is read
+    to the host once, when the counter is next read (``value``,
+    ``since_mark``, ``mark``), so counting does not wait for the
+    device."""
 
     __slots__ = ("name", "labels", "_lock", "_value", "_mark")
 
@@ -52,18 +58,26 @@ class Counter:
     @property
     def value(self):
         """Cumulative process-lifetime total."""
-        # repro: allow[guarded-by] deliberate lock-free monitoring read: a single int load is atomic under the GIL and this sits on snapshot()/bench hot paths
-        return self._value
+        # repro: allow[guarded-by] deliberate lock-free monitoring read: a single load is atomic under the GIL and this sits on snapshot()/bench hot paths
+        v = self._value
+        if isinstance(v, (int, float)):
+            return v
+        with self._lock:  # a device total, read to the host once
+            if not isinstance(self._value, (int, float)):
+                self._value = self._value.item()
+            return self._value
 
     def mark(self) -> None:
         """Start a new measurement window (owner-private)."""
+        v = self.value
         with self._lock:
-            self._mark = self._value
+            self._mark = v
 
     @property
     def since_mark(self):
+        v = self.value
         # repro: allow[guarded-by] deliberate lock-free read: worst case is a window view one inc() stale, never torn — both fields are GIL-atomic ints
-        return self._value - self._mark
+        return v - self._mark
 
 
 class Gauge:
@@ -230,4 +244,20 @@ REGISTRY = MetricsRegistry()
 
 def registry() -> MetricsRegistry:
     return REGISTRY
+
+
+def read_site(site: str) -> Counter:
+    """The ``search.host_reads{site}`` counter of one place in the query
+    path where the host waits for the device. Bind it once, when the
+    module that holds the site is imported."""
+    return REGISTRY.counter("search.host_reads", site=site)
+
+
+def host_read(site: Counter, fn, *args, **kw):
+    """``fn(*args, **kw)``, a step that waits for the device (a device
+    value read to the host, or a copy from pageable host memory),
+    counted at ``site`` (:func:`read_site`). Every such step of the
+    query path goes through here, so the count misses none."""
+    site.inc()
+    return fn(*args, **kw)
 

@@ -6,9 +6,13 @@ serving front (``serve/batching.Request.submitted_at``) and the failover
 latency share, so stamps taken in different modules subtract coherently.
 This module reads no clock of its own.
 
-Tracing is DISABLED by default and costs one module-global bool check
-per instrumented site while disabled: :func:`span` then returns a shared
-no-op context manager without touching the tracer.
+A span site has two sinks. The in-memory tracer takes it while tracing
+is enabled (:func:`enable`); and while a ``torch.profiler`` is recording
+(or ``torch.autograd.profiler.emit_nvtx``), the same site enters
+``torch.profiler.record_function(<span name>)``, so the span lands in
+the profiler's trace as a ``user_annotation`` on the kernels' clock (an
+NVTX range under ``emit_nvtx``). With neither on, :func:`span` returns a
+shared no-op context manager after one check.
 
 When enabled, spans nest through a thread-local stack (each thread
 builds its own subtree; ids are process-unique), finished spans land in
@@ -22,11 +26,17 @@ the tracer's ordered list, and two consumers read them:
                       (chrome://tracing, Perfetto): ``ph="X"`` complete
                       events, µs timestamps, span attrs in ``args``.
 
-Spans are host time. The traced search sites (``core.search``, the
-``ooc.*`` phases, ``engine.query``) wait for the device before their
-span closes, so the span covers the work they launched; untraced, they
-keep launches asynchronous. The span taxonomy and attribute names are
-the reference's (docs/OBSERVABILITY.md).
+Spans are host time. An attribute may be a device tensor: it is kept as
+it is, and read to the host (the Python number of its sum) only when the
+spans are read (:meth:`Tracer.spans`, :func:`profile`,
+:func:`chrome_events`), so a span over asynchronous device work does not
+wait for it; the site hands over a tensor that nothing writes after. The
+resident search's spans (``core.search``, ``engine.query``, the
+``search.*`` loop phases) so never wait on the device; the out-of-core
+phases (``ooc.filter``, ``ooc.score``, ``ooc.finalize``) wait for it
+while the in-memory tracer is on, so that their spans cover the work
+they launched. The span taxonomy and attribute names are the
+reference's, and the port's own (docs/OBSERVABILITY.md).
 """
 
 from __future__ import annotations
@@ -38,15 +48,19 @@ import os
 import threading
 from typing import Any, Dict, List, Optional
 
+import torch
+
 from repro_torch.clock import now
 
 __all__ = [
     "NULL_SPAN", "QueryProfile", "Span", "Tracer", "chrome_events",
     "clear", "disable", "dump_chrome_trace", "enable", "enabled",
-    "last_profile", "now", "profile", "span", "tracer",
+    "last_profile", "now", "profile", "sink_on", "span", "tracer",
 ]
 
 _enabled = False
+# whether a torch.profiler (or emit_nvtx) is recording: one C call
+_profiling = torch.autograd._profiler_enabled
 
 
 def enabled() -> bool:
@@ -62,6 +76,13 @@ def enable() -> None:
 def disable() -> None:
     global _enabled
     _enabled = False
+
+
+def sink_on() -> bool:
+    """Whether a span site records anywhere: the in-memory tracer is
+    enabled or a profiler is recording. Counts that cost device work
+    (``search.pooled_rows``) are made only then."""
+    return _enabled or _profiling()
 
 
 class _NullSpan:
@@ -87,6 +108,33 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+class _ProfilerSpan(_NullSpan):
+    """What :func:`span` hands out while only a profiler records: the
+    profiler's ``record_function`` under the span's name; attributes go
+    nowhere."""
+
+    __slots__ = ("_rf",)
+
+    def __init__(self, name: str):
+        self._rf = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        return False
+
+
+def _resolve(attrs: Dict[str, Any]) -> None:
+    """Replace each device-tensor attribute by the Python number of its
+    sum (a host read, once)."""
+    for k, v in attrs.items():
+        if isinstance(v, torch.Tensor):
+            attrs[k] = v.sum().item()
+
+
 @dataclasses.dataclass
 class Span:
     """One timed region. Context-manager: ``with tracer.span(...) as
@@ -101,6 +149,8 @@ class Span:
     tid: int = 0
     attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
     _tracer: Optional["Tracer"] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _rf: Optional[Any] = dataclasses.field(
         default=None, repr=False, compare=False)
 
     def set(self, **attrs) -> None:
@@ -118,12 +168,18 @@ class Span:
         return (self.t1 - self.t0) * 1e3
 
     def __enter__(self) -> "Span":
+        if _profiling():
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
         self._tracer._push(self)
         return self
 
     def __exit__(self, *exc) -> bool:
         self.t1 = now()
         self._tracer._pop(self)
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            self._rf = None
         return False
 
 
@@ -177,9 +233,12 @@ class Tracer:
 
     def spans(self) -> List[Span]:
         """Finished spans, completion-ordered (children before their
-        parent — a parent exits last)."""
+        parent — a parent exits last), their device attributes read."""
         with self._lock:
-            return list(self._spans)
+            out = list(self._spans)
+        for sp in out:
+            _resolve(sp.attrs)
+        return out
 
     def find(self, name: str) -> List[Span]:
         return [s for s in self.spans() if s.name == name]
@@ -216,10 +275,11 @@ def tracer() -> Tracer:
 
 def span(name: str, **attrs):
     """The instrumentation entry point: a real span when tracing is
-    enabled, the shared no-op otherwise. ``with obs.span("x") as sp:``
-    works identically in both states."""
+    enabled, the profiler's annotation alone while only a profiler
+    records, the shared no-op otherwise. ``with obs.span("x") as sp:``
+    works identically in every state."""
     if not _enabled:
-        return NULL_SPAN
+        return _ProfilerSpan(name) if _profiling() else NULL_SPAN
     return _TRACER.span(name, **attrs)
 
 
@@ -291,6 +351,8 @@ def chrome_events(spans: List[Span]) -> List[dict]:
     """Spans -> Chrome trace-event "complete" (ph=X) events. ts/dur in
     µs on the shared monotonic clock; attrs become ``args``."""
     pid = os.getpid()
+    for sp in spans:
+        _resolve(sp.attrs)
     return [{
         "name": sp.name, "ph": "X", "pid": pid, "tid": sp.tid,
         "ts": sp.t0 * 1e6, "dur": max(sp.t1 - sp.t0, 0.0) * 1e6,

@@ -51,6 +51,8 @@ from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.obs import REGISTRY
 
+_UPLOAD = obs.read_site("delta_rows")
+
 
 class DeltaSnapshot(NamedTuple):
     """A consistent point-in-time view for one query: the live delta rows
@@ -283,8 +285,9 @@ def search_snapshot(snap: DeltaSnapshot, queries: torch.Tensor, k: int,
         return top_d, top_i
     m = snap.live_rows
     with obs.span("delta.search", lanes=b, rows=m):
-        cand = torch.as_tensor(snap.ids, device=dev)[None, :].expand(b, m)
-        rows = torch.as_tensor(snap.rows, device=dev)
+        cand = obs.host_read(_UPLOAD, torch.as_tensor, snap.ids,
+                             device=dev)[None, :].expand(b, m)
+        rows = obs.host_read(_UPLOAD, torch.as_tensor, snap.rows, device=dev)
         if codec == "pq":
             diff = rows[None] - qf[:, None, :]
             d = (diff * diff).sum(-1)

@@ -22,14 +22,17 @@ stopping, and with them the guarantees, are the in-memory search's:
 Each iteration the source reads the window's leaf ids to the host,
 makes those leaves cache-resident (one batched upload), and schedules
 the next ``prefetch_depth`` windows on the prefetcher, so the disk reads
-overlap the scoring.
+overlap the scoring. Those reads and the window's upload count under
+``search.host_reads{site=ooc_window}``, the pq re-rank's under
+``rerank`` (the cache's fills are counted in bytes, ``bytes_h2d``).
 
 With tracing on (``repro_torch.obs``), a search is an ``ooc.query`` span
 over ``ooc.filter``, one ``ooc.iteration`` per step (each holding its
 ``ooc.gather`` and ``ooc.score``) and ``ooc.finalize``, the reference's
-taxonomy. The root's attributes are set from the same OocStats the
-caller gets; a traced phase synchronizes the device before its span
-closes. With tracing off each site costs one bool check.
+taxonomy, with the loop's ``search.*`` spans inside them. The root's
+attributes are set from the same OocStats the caller gets; a traced
+phase synchronizes the device before its span closes. With tracing off
+each site costs one check.
 """
 
 from __future__ import annotations
@@ -51,6 +54,13 @@ from repro_torch.obs import OocStats
 from .cache import DeviceLeafCache
 from .layout import LeafStore, to_tensor
 from .prefetch import LeafPrefetcher
+
+_WINDOW = obs.read_site("ooc_window")
+_RERANK = obs.read_site("rerank")
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
 
 
 class OocResult(NamedTuple):
@@ -93,8 +103,8 @@ class CachedStoreSource:
         pool. Every lane's request, copies included, goes to the cache, so
         lanes sharing a leaf each count a hit."""
         m = self.store.max_leaf
-        leaf_h = leaf.cpu().numpy()
-        ok_h = ok.cpu().numpy()
+        leaf_h = obs.host_read(_WINDOW, _host, leaf)
+        ok_h = obs.host_read(_WINDOW, _host, ok)
         needed = leaf_h[ok_h]
         with obs.span("ooc.gather") as sp:
             # demand reads only: the prefetcher lands its bytes
@@ -105,7 +115,8 @@ class CachedStoreSource:
             slot_h = np.zeros(leaf_h.shape, np.int64)
             slot_h[ok_h] = slots
             dev = leaf.device
-            gi = (torch.as_tensor(slot_h, device=dev)[:, :, None] * m
+            gi = (obs.host_read(_WINDOW, torch.as_tensor, slot_h,
+                                device=dev)[:, :, None] * m
                   + torch.arange(m, device=dev)).reshape(leaf.shape[0], -1)
             row_idx, valid = refine.candidate_layout(
                 self.resident.offsets, leaf, ok, m,
@@ -125,10 +136,11 @@ class CachedStoreSource:
         if not self.prefetch_enabled or pf is None:
             return
         for leaf_w, ok_w in windows:
-            ok_h = ok_w.cpu().numpy()
+            ok_h = obs.host_read(_WINDOW, _host, ok_w)
             if not ok_h.any():
                 continue
-            nxt = [int(lf) for lf in np.unique(leaf_w.cpu().numpy()[ok_h])
+            leaf_h = obs.host_read(_WINDOW, _host, leaf_w)
+            nxt = [int(lf) for lf in np.unique(leaf_h[ok_h])
                    if not self.cache.contains(int(lf))]
             if nxt:
                 pf.schedule(nxt)
@@ -181,22 +193,24 @@ def _exact_rerank(store: LeafStore, qf: torch.Tensor, top_d, top_i,
     row is read once for the whole batch. A position of -1 (a masked or
     tombstoned slot, or an unfilled one) is never read and stays
     (inf, -1)."""
-    pos = top_i.cpu().numpy()
+    pos = obs.host_read(_RERANK, _host, top_i)
     uniq = np.unique(pos[pos >= 0])
     if uniq.size == 0:
         return top_d[:, :k], top_i[:, :k], 0
     raw = store.read_rows_exact(uniq)
     rerank_bytes = int(raw.nbytes)
     dev = qf.device
-    rows = to_tensor(raw, store.meta["data_dtype"], dev).float()
-    gather = torch.as_tensor(np.searchsorted(uniq, np.clip(pos, 0, None)),
-                             device=dev)
+    rows = obs.host_read(_RERANK, to_tensor, raw, store.meta["data_dtype"],
+                         dev).float()
+    gather = obs.host_read(_RERANK, torch.as_tensor,
+                           np.searchsorted(uniq, np.clip(pos, 0, None)),
+                           device=dev)
     # the direct difference, not |q|^2 - 2 q.x + |x|^2: the expanded form
     # loses about 1e-3 to cancellation near zero, and the re-rank promises
     # exact distances (a query equal to a stored row comes back at 0)
     diff = rows[gather] - qf[:, None, :]                # [B, kk, n]
     d = (diff * diff).sum(-1)
-    real = torch.as_tensor(pos >= 0, device=dev)
+    real = obs.host_read(_RERANK, torch.as_tensor, pos >= 0, device=dev)
     d = torch.where(real, d, INF)
     cids = torch.where(real, store.resident.ids[top_i.long().clamp_min(0)],
                        -1)

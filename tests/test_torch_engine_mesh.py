@@ -36,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 import _worlds
+from repro_torch import obs
 from repro_torch.core import guarantees as G
 from repro_torch.core.engine import DistributedEngine
 from repro_torch.core.spec import IndexSpec, StoreSpec
@@ -447,6 +448,35 @@ def test_world_of_one_equals_the_one_card_engine(world_of_one, gname):
         for x, y in zip(a[:4], b[:4]):
             assert torch.equal(x, y)
         assert (a.lb_computed, a.iterations) == (b.lb_computed, b.iterations)
+
+
+def test_world_of_one_traces_its_collectives(world_of_one):
+    """On a mesh, the lockstep step's all_reduce is an engine.sync_bsf
+    span whose flag is one host read a step, and the answers' all_gather
+    an engine.gather_results span with two (the counts copied up, the
+    tails read back)."""
+    data, q = mesh_a_data()
+    mesh = M.make_test_mesh((1, 1), ("data", "model"), device="cpu")
+    eng = DistributedEngine(mesh=mesh, axes=("data",), device="cpu")
+    eng.build(data, index=IndexSpec("dstree", leaf_cap=32))
+    sites = {s: obs.REGISTRY.counter("search.host_reads", site=s)
+             for s in ("mesh_flag", "mesh_gather", "settle")}
+    before = {s: c.value for s, c in sites.items()}
+    obs.clear()
+    obs.enable()
+    try:
+        out = eng.query(q, 5, PORT_G["ng"], sync_bsf=True, visit_batch=2)
+        names = [sp.name for sp in obs.tracer().spans()]
+    finally:
+        obs.disable()
+        obs.clear()
+    got = {s: c.value - before[s] for s, c in sites.items()}
+    steps = names.count("engine.sync_bsf")
+    # one more step than the shard's settles: the one that finds none
+    assert steps == out.iterations[0] + 1 == got["settle"] + 1
+    assert got == {"mesh_flag": steps, "mesh_gather": 2,
+                   "settle": out.iterations[0]}
+    assert names.count("engine.gather_results") == 1
 
 
 def test_the_engine_runs_where_its_mesh_runs(world_of_one):

@@ -13,6 +13,7 @@ accessor and OocStats' mapping view against the reference's
 """
 
 import json
+import subprocess
 import threading
 import time
 
@@ -470,3 +471,201 @@ def test_run_retrieval_attributes_time_per_group(traced):
     kinds = {sp.attrs["kind"] for sp in
              traced.find("serve.retrieval_group")}
     assert kinds == {"exact", "ng"}
+
+
+# ------------------------------ the resident search's spans and counters
+def _reads() -> dict:
+    """search.host_reads by site, and search.iterations, as they stand."""
+    snap = obs.REGISTRY.snapshot("search.")
+    return {k: v for k, v in snap.items()
+            if k.startswith("search.host_reads") or k == "search.iterations"}
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+
+
+MODES = {"solo": {}, "coop": {"share_gathers": True},
+         "sync_bsf": {"sync_bsf": True}}
+
+
+@pytest.fixture(scope="module")
+def two_shards(walk_data):
+    return DistributedEngine(shards=2, device="cpu").build(
+        walk_data, index=IndexSpec("dstree", leaf_cap=32))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_a_traced_resident_query_waits_as_an_untraced_one(
+        two_shards, walk_queries, mode):
+    """Tracing on changes neither the answer nor the host's waits on the
+    device, site by site; the loop is one search.advance an iteration,
+    and engine.query's visit totals are numbers once read."""
+    kw = dict(visit_batch=2, **MODES[mode])
+    before = _reads()
+    plain = two_shards.query(walk_queries, 5, G.ng(6), **kw)
+    untraced = _delta(before, _reads())
+    obs.clear()
+    obs.enable()
+    try:
+        before = _reads()
+        traced = two_shards.query(walk_queries, 5, G.ng(6), **kw)
+        traced_reads = _delta(before, _reads())
+        spans = obs.tracer().spans()
+    finally:
+        obs.disable()
+        obs.clear()
+    for a, b in zip(plain[:4], traced[:4]):
+        assert torch.equal(a, b)
+    assert plain.iterations == traced.iterations
+    assert traced_reads == untraced
+    names = [sp.name for sp in spans]
+    assert names.count("search.advance") == sum(traced.iterations) \
+        == names.count("search.settle")
+    assert names.count("search.filter") == names.count("search.finish") == 2
+    assert names.count("engine.merge") == 1
+    (root,) = [sp for sp in spans if sp.name == "engine.query"]
+    assert root.attrs["leaves_visited"] == int(traced.leaves_visited.sum())
+    assert root.attrs["rows_scanned"] == int(traced.rows_scanned.sum())
+    assert isinstance(root.attrs["rows_scanned"], int)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_host_reads_are_two_an_iteration_and_two_a_shard(
+        two_shards, walk_queries, mode):
+    """The loop waits twice an iteration (the refill test, settle's
+    flag) and twice a shard a batch (epsilon's and r_delta's scalars
+    copied up), and nowhere else on the resident path."""
+    before = _reads()
+    out = two_shards.query(walk_queries, 5, G.ng(6), visit_batch=2,
+                           **MODES[mode])
+    its = sum(out.iterations)
+    assert _delta(before, _reads()) == {
+        "search.iterations": its,
+        "search.host_reads{site=refill}": its,
+        "search.host_reads{site=settle}": its,
+        "search.host_reads{site=eps_mult}": 2,
+        "search.host_reads{site=r_delta}": 2}
+
+
+@pytest.mark.parametrize("fold", [S.POOL_FOLD, 2])
+def test_pooled_rows_count_the_coop_mask(walk_data, walk_queries,
+                                         monkeypatch, fold):
+    """search.pooled_rows is the coop mask's true slots summed over the
+    iterations, search.pooled_pairs those times the lanes still active,
+    however many iterations are held before they count; counted only
+    while a span sink is on."""
+    monkeypatch.setattr(S, "POOL_FOLD", fold)
+    ix = dstree.build(walk_data, leaf_cap=32, device="cpu")
+    q = torch.as_tensor(walk_queries)
+    seen = []
+    real = S.refine.coop_mask
+
+    def spy(leaf, ok, valid):
+        m = real(leaf, ok, valid)
+        seen.append(int(m.sum()))
+        return m
+
+    monkeypatch.setattr(S.refine, "coop_mask", spy)
+    rows = obs.REGISTRY.counter("search.pooled_rows")
+    pairs = obs.REGISTRY.counter("search.pooled_pairs")
+    r0, p0 = rows.value, pairs.value
+    S.refine_loop(S.refine.ResidentSource(ix), q, 5, nprobe=5,
+                  visit_batch=2, share_gathers=True)
+    assert seen and (rows.value, pairs.value) == (r0, p0)  # no sink on
+    seen.clear()
+    obs.enable()
+    try:
+        run = S.Refinement(S.refine.ResidentSource(ix), q, 5, nprobe=5,
+                           visit_batch=2, share_gathers=True)
+        lanes = []
+        while run.go:
+            lanes.append(int(run.active.sum()))
+            run.step()
+        run.finish()
+    finally:
+        obs.disable()
+        obs.clear()
+    assert len(seen) == len(lanes) == run.iterations > 1
+    assert rows.value - r0 == sum(seen)
+    assert pairs.value - p0 == sum(s * a for s, a in zip(seen, lanes))
+
+
+def test_a_counter_sums_device_increments_and_reads_them_once():
+    c = MetricsRegistry().counter("pool")
+    c.inc(2)
+    c.inc(torch.tensor(3))
+    c.inc(torch.tensor(4))
+    assert c.value == 9 and isinstance(c.value, int)
+    c.mark()
+    c.inc(torch.tensor(1))
+    assert c.since_mark == 1
+
+
+def test_a_span_site_under_the_profiler_alone(traced):
+    """With only a profiler recording, a site is the profiler's
+    annotation and records nothing in memory; with neither on, the
+    shared no-op; with both, the span lands in both."""
+    from torch.profiler import ProfilerActivity, profile
+
+    obs.disable()
+    assert obs.span("x") is obs.NULL_SPAN and not obs.sink_on()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert obs.sink_on()
+        with obs.span("search.only_profiler") as sp:
+            sp.set(n=1)
+            torch.ones(3).sum()
+        obs.enable()
+        with obs.span("search.both"):
+            torch.ones(3).sum()
+    assert [s.name for s in traced.spans()] == ["search.both"]
+    names = {e.name for e in prof.events()}
+    assert {"search.only_profiler", "search.both"} <= names
+
+
+def test_device_attributes_are_read_when_the_spans_are(traced):
+    with obs.span("outer") as sp:
+        sp.set(rows=torch.tensor([1, 2, 3]), ms=torch.tensor(0.5))
+        assert isinstance(traced.current().attrs["rows"], torch.Tensor)
+    (got,) = traced.spans()
+    assert got.attrs == {"rows": 6, "ms": 0.5}
+    json.dumps(obs.chrome_events(traced.spans()))
+
+
+def test_a_build_is_a_span_tree_with_its_phase_seconds(walk_data, traced):
+    eng = DistributedEngine(shards=2, device="cpu").build(
+        walk_data, index=IndexSpec("dstree", leaf_cap=32))
+    prof = obs.last_profile("engine.build")
+    assert set(prof.phase_ms) == {"engine.histogram", "index.build",
+                                  "engine.pad"}
+    snap = obs.REGISTRY.snapshot("engine.build_s")
+    phases = {k[len("engine.build_s{phase="):-1]: v for k, v in snap.items()}
+    assert set(phases) == {"histogram", "index", "pad", "total"}
+    assert 0 < phases["index"] <= phases["total"]
+    assert phases["total"] >= sum(phases[p] for p in
+                                  ("histogram", "index", "pad"))
+    assert eng.resident is not None
+
+
+def test_kernels_compiles_counts_an_nvcc_run(tmp_path, monkeypatch,
+                                             traced):
+    """A kernel built again counts once under kernels.compiles and is a
+    kernels.compile span; a build found on disk counts nothing."""
+    from repro_torch.kernels import build
+
+    def fake_nvcc(cmd, **kw):
+        open(cmd[cmd.index("-o") + 1], "wb").close()
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(build.subprocess, "run", fake_nvcc)
+    c = obs.REGISTRY.counter("kernels.compiles", kernel="paa")
+    n0 = c.value
+    path = build._compile("paa")
+    assert path.exists() and c.value == n0 + 1
+    build._compile("paa")
+    assert c.value == n0 + 1
+    (sp,) = traced.find("kernels.compile")
+    assert sp.attrs["kernel"] == "paa"
