@@ -17,8 +17,9 @@ Phases, each of which fails the run by raising:
      dims bit-equal), K4 up to kk = 2000, K6 up to 1200 and lex_select
      up to 30000 (past its sort in shared memory), with negative tables,
      every id masked, and at B = 100, R = 2^18, where the [B, R] scores
-     no longer fit in L2; K1 at D = 33 to 100, K3 at the baselines'
-     shapes;
+     no longer fit in L2; K4 also reading its slots through a row index
+     with whole 128-slot runs masked, at B = 9 to 257; K1 at D = 33 to
+     100, K3 at the baselines' shapes;
   4. small input: the quickstart loop at N = 4096 on the card and on the
      CPU (plain versions), answers compared; then share_gathers at
      k = 600, an iSAX2+ of 48 segments, and the four vector baselines
@@ -502,7 +503,16 @@ def phase_ragged(torch, ops, ref) -> None:
             (30, 5000, 16, 1024, torch.float32, "integer"),
             (10, 5000, 16, 2000, torch.float32, "integer"),
             (100, 1 << 18, 256, 200, torch.float32, ""),
-            (100, 1 << 18, 256, 200, torch.float32, "masked")]:
+            (100, 1 << 18, 256, 200, torch.float32, "masked"),
+            # the cooperative step's form: slots read through an index
+            # into a larger source, every fifth run of 128 slots masked
+            # whole (a copy of a leaf another lane pooled), at both lane
+            # tiles (104 lanes a block at B <= 104, else 128)
+            (100, 25_600, 256, 200, torch.float32, "index"),
+            (257, 30_001, 256, 200, torch.float32, "index"),
+            (256, 1 << 18, 256, 200, torch.float32, "index"),
+            (9, 3000, 64, 40, torch.bfloat16, "index")]:
+        index = None
         if kind == "integer":  # exact arithmetic, ties decided by id
             q = torch.randint(-2, 3, (b, n), generator=g, device="cuda")
             rows = torch.randint(-2, 3, (r, n), generator=g, device="cuda")
@@ -510,20 +520,29 @@ def phase_ragged(torch, ops, ref) -> None:
         else:
             q, rows = rn(b, n), rn(r, n, dtype=dt)
         norms = ops.row_sq_norms(rows)
+        if kind == "index":
+            src = rn(2 * r, n, dtype=dt)
+            index = torch.randint(0, 2 * r, (r,), generator=g, device="cuda")
+            rows, norms = src[index], ops.row_sq_norms(src)[index]
         ids = torch.randperm(r, generator=g, device="cuda").to(torch.int32)
         ids[::7] = -1
         if kind == "masked":  # every slot comes back as (inf, -1)
             ids[:] = -1
-        got = ops.coop_score_select(q, rows, norms, ids, kk)
+        if kind == "index":
+            ids[torch.arange(r, device="cuda") // 128 % 5 == 3] = -1
+            got = ops.coop_score_select(q, src, norms, ids, kk, index=index)
+            del src
+        else:
+            got = ops.coop_score_select(q, rows, norms, ids, kk)
         want = ref.ref_coop_score_select(q, rows, norms, ids, kk)
         what = f"coop_score_select {b}x{r}x{n} kk={kk} {dt} {kind}"
-        if kind:
+        if kind in ("integer", "masked"):
             if not (torch.equal(got[0], want[0])
                     and torch.equal(got[1], want[1])):
                 raise AssertionError(f"{what}: not exact")
         else:
             select_close(torch, got, want, q, rows, ids, what)
-        del q, rows, norms, ids, got, want
+        del q, rows, norms, ids, got, want, index
     for b, r, m, per_lane in [(1, 1, 16, False), (3, 1001, 16, False),
                               (7, 333, 16, True), (2, 4097, 8, False),
                               (5, 65, 5, True), (100, 256, 16, True)]:
@@ -798,10 +817,11 @@ def lex_equal(torch, ref, got, d, ids, kk: int, what: str) -> None:
 
 class PathInputs:
     """Installed over ``ops`` (``with``), records the inputs that a path
-    gives each kernel wrapper, the first call at each shape; ``check``
-    then holds each wrapper against its plain version on them. The
-    wrappers count their launches as before, and the launches that
-    ``check`` makes to compare do not count."""
+    gives each kernel wrapper, keywords included (K4's row ``index``),
+    the first call at each shape; ``check`` then holds each wrapper
+    against its plain version on them. The wrappers count their launches
+    as before, and the launches that ``check`` makes to compare do not
+    count."""
 
     def __init__(self, torch, ops, ref, wrappers):
         self.torch, self.ops, self.ref = torch, ops, ref
@@ -818,12 +838,15 @@ class PathInputs:
             setattr(self.ops, name, fn)
 
     def _recording(self, name, fn):
-        def call(*args):
-            key = (name,) + tuple(tuple(a.shape) if hasattr(a, "shape")
-                                  else a for a in args)
+        def shape(a):
+            return tuple(a.shape) if hasattr(a, "shape") else a
+
+        def call(*args, **kw):
+            key = ((name,) + tuple(shape(a) for a in args)
+                   + tuple((k, shape(v)) for k, v in sorted(kw.items())))
             if key not in self.held:
-                self.seen.setdefault(key, args)
-            return fn(*args)
+                self.seen.setdefault(key, (args, kw))
+            return fn(*args, **kw)
 
         return call
 
@@ -833,9 +856,12 @@ class PathInputs:
         torch, ref = self.torch, self.ref
         saved = {name: fn.launches for name, fn in self.wrappers.items()}
         try:
-            for key, args in self.seen.items():
+            for key, (args, kw) in self.seen.items():
                 name, where = key[0], f"{what} {key}"
                 fn = self.wrappers[name]
+                if kw and name != "coop_score_select":
+                    raise AssertionError(f"{where}: no plain check for "
+                                         f"the keywords {sorted(kw)}")
                 if name == "l2":
                     close(torch, fn(*args), ref.ref_l2(*args), where,
                           dist_atol, DIST_RTOL)
@@ -845,10 +871,15 @@ class PathInputs:
                     if not torch.equal(fn(*args), ref.ref_paa(*args)):
                         raise AssertionError(f"{where}: not bit-exact")
                 elif name == "coop_score_select":
-                    q, rows, _, ids, _ = args
-                    select_close(torch, fn(*args),
-                                 ref.ref_coop_score_select(*args), q, rows,
-                                 ids, where)
+                    # slot r is rows[index[r]] (rows[r] with no index)
+                    q, rows, norms, ids, kk = args
+                    index = kw.get("index")
+                    slots = rows if index is None else rows[index]
+                    select_close(torch, fn(*args, **kw),
+                                 ref.ref_coop_score_select(q, slots, norms,
+                                                           ids, kk),
+                                 q, slots, ids, where)
+                    del slots
                 elif name == "pq_adc_select":
                     got, want = fn(*args), ref.ref_pq_adc_select(*args)
                     if not (torch.equal(got[0], want[0])
@@ -994,6 +1025,9 @@ def kernel_rows(torch, ops, ref, build, data_t, q_t, idx, vaf, k, counts,
     version, then the kernel's, the plain version's and a library call's
     times, and the least time the card could take. Prints the split of
     K4 and K6 into their score and select passes."""
+    from repro_torch.core import refine
+    from repro_torch.kernels import topk
+
     F = torch.nn.functional
     rows = []
 
@@ -1058,22 +1092,42 @@ def kernel_rows(torch, ops, ref, build, data_t, q_t, idx, vaf, k, counts,
     print(f"K3 library: expanded form {rows[-1]['library_ms']:.4f} ms, "
           f"cdist {rows[-1]['cdist_ms']:.4f} ms, K3 {rows[-1]['ms']:.4f} ms")
 
-    # K4: one cooperative iteration on iSAX2+ (every lane pools a leaf)
+    # K4: one cooperative iteration on iSAX2+ in the step's own form
+    # (core/refine.refine_step): every lane pools a leaf, every fifth
+    # lane a copy of its neighbour's, which the pool masks whole (the
+    # search cell masks ~22% of its slots so), and the pass reads the
+    # slots through their index. The bound counts the kept slots
     r = b * idx.max_leaf
     kk = min(2 * k, r)
-    a = (q_t, idx.data[:r].contiguous(), idx.row_norms[:r].contiguous(),
-         idx.ids[:r].contiguous(), kk)
+    g4 = torch.Generator(device="cuda").manual_seed(4)
+    leaf = torch.randint(idx.offsets.shape[0] - 1, (b, 1), generator=g4,
+                         device="cuda")
+    leaf[4::5] = leaf[3:b - 1:5]
+    ok = torch.ones_like(leaf, dtype=torch.bool)
+    gi, valid = refine.candidate_layout(idx.offsets, leaf, ok, idx.max_leaf,
+                                        idx.data.shape[0] - 1)
+    valid = refine.coop_mask(leaf, ok, valid)
+    flat = gi.reshape(-1)
+    ids4 = torch.where(valid, idx.ids[gi], -1).reshape(-1)
+    q4, norms4, kk4 = q_t, idx.row_norms[flat], kk
+    rows4 = idx.data[flat]  # the plain version's pool
+    kept4 = int((ids4 >= 0).sum())
+    masked4 = int((~(ids4 >= 0).view(-1, 128).any(1)).sum()) \
+        if r % 128 == 0 else -1
     add("coop_score_select",
-        select_close(torch, ops.coop_score_select(*a),
-                     ref.ref_coop_score_select(*a), q_t, a[1], a[3],
-                     "coop main"),
-        lambda: ops.coop_score_select(*a),
-        lambda: ref.ref_coop_score_select(*a),
-        4 * (b * n + r * n + 2 * r) + 8 * b * kk,
-        2 * b * r * n + 2 * b * n + 3 * b * r)
+        select_close(torch, ops.coop_score_select(
+            q4, idx.data, norms4, ids4, kk4, index=flat),
+            ref.ref_coop_score_select(q4, rows4, norms4, ids4, kk4), q4,
+            rows4, ids4, "coop main"),
+        lambda: ops.coop_score_select(q4, idx.data, norms4, ids4, kk4,
+                                      index=flat),
+        lambda: ref.ref_coop_score_select(q4, rows4, norms4, ids4, kk4),
+        4 * (b * n + kept4 * n + 2 * r) + 8 * r + 8 * b * kk,
+        2 * b * kept4 * n + 2 * b * n + 3 * b * r)
+    print(f"K4 main: {r} slots, {kept4} kept, {masked4} of {r // 128} "
+          "128-slot tiles masked whole")
 
     # lex_select at K4's shape: the scores of that iteration, selected
-    q4, rows4, norms4, ids4, kk4 = a
     s4 = ops.sq_l2(q4, rows4, norms4)
     got, want = ops.lex_select(s4, ids4, kk4), ref.ref_lex_select(s4, ids4,
                                                                  kk4)
@@ -1082,11 +1136,8 @@ def kernel_rows(torch, ops, ref, build, data_t, q_t, idx, vaf, k, counts,
     add("lex_select", 0.0, lambda: ops.lex_select(s4, ids4, kk4),
         lambda: ref.ref_lex_select(s4, ids4, kk4),
         4 * (b * r + r) + 8 * b * kk4, b * r, rate=PEAK_F32_INSTR)
-    score4 = build.library("topk").coop_score_f32
-    stream = build.stream(q4)
-    split = {"K4 score": cuda_ms(torch, lambda: score4(
-        q4.data_ptr(), rows4.data_ptr(), norms4.data_ptr(), s4.data_ptr(),
-        b, r, n, stream), 10)}
+    split = {"K4 score": cuda_ms(torch, lambda: topk.score_pass(
+        q4, idx.data, norms4, ids4, flat), 10)}
     split["K4 select (kk=%d)" % kk4] = rows[-1]["ms"]
 
     # K5: one query's ADC scan over the whole pq payload; the library
@@ -2338,8 +2389,13 @@ def phase_serving(torch, S, G, data_t, q, truth0, k, engines, live, path):
                      "ooc.query": "engine.shard",
                      "ooc.filter": "ooc.query", "ooc.iteration": "ooc.query",
                      "ooc.finalize": "ooc.query",
-                     "ooc.gather": "ooc.iteration",
-                     "ooc.score": "ooc.iteration"}
+                     # the loop's own spans (core/search.Refinement)
+                     "search.advance": "ooc.iteration",
+                     "search.settle": "ooc.iteration",
+                     "search.gather": "search.advance",
+                     "search.score": "search.advance",
+                     "ooc.gather": "search.gather",
+                     "ooc.score": "search.score"}
         names = {}
         for sp in prof.spans:
             names[sp.name] = names.get(sp.name, 0) + 1

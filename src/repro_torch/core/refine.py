@@ -207,6 +207,13 @@ class Gathered(NamedTuple):
     valid: torch.Tensor       # [B, V*M] bool
 
 
+def live(ctx: ScoreCtx, valid: torch.Tensor,
+         row_idx: torch.Tensor) -> torch.Tensor:
+    """``valid`` with the context's tombstoned rows (``ctx.dead``) masked:
+    the slots a scoring step keeps."""
+    return valid if ctx.dead is None else valid & ~ctx.dead[row_idx]
+
+
 def refine_step(ctx: ScoreCtx, pool: torch.Tensor, gather_idx: torch.Tensor,
                 row_idx: torch.Tensor, valid, top_d, top_i, *, share: bool,
                 pq: bool) -> tuple:
@@ -215,8 +222,10 @@ def refine_step(ctx: ScoreCtx, pool: torch.Tensor, gather_idx: torch.Tensor,
       solo raw    gather [B, V*M] rows per lane, squared L2 with the
                   cached norms, topk_merge.
       coop raw    pool every lane's rows; every lane scores the whole pool
-                  and keeps its best 2k (the coop_score_select kernel),
-                  then a merge that keeps each id once.
+                  and keeps its best 2k (the coop_score_select kernel,
+                  which reads the pooled rows in place through
+                  ``gather_idx`` and skips the masked tiles), then a
+                  merge that keeps each id once.
       solo pq     ADC of each lane's code rows against its table (the
                   pq_adc_batch kernel), merge padded row positions (the
                   exact re-rank maps them to ids).
@@ -232,8 +241,7 @@ def refine_step(ctx: ScoreCtx, pool: torch.Tensor, gather_idx: torch.Tensor,
     every corner: it never enters a running top-k, and a pq re-rank never
     reads it."""
     k = top_d.shape[1]
-    if ctx.dead is not None:
-        valid = valid & ~ctx.dead[row_idx]
+    valid = live(ctx, valid, row_idx)
     if pq:
         cand = torch.where(valid, row_idx, -1).to(torch.int32)
     else:
@@ -244,10 +252,10 @@ def refine_step(ctx: ScoreCtx, pool: torch.Tensor, gather_idx: torch.Tensor,
         kk = min(2 * k, candf.shape[0])
         if pq:
             sel_d, sel_i = ops.pq_adc_select(pool[flat], ctx.luts, candf, kk)
-        else:
+        else:  # K4 reads the pooled rows in place, through flat
             sel_d, sel_i = ops.coop_score_select(
-                ctx.qf, pool[flat], ctx.norms[row_idx.reshape(-1)], candf,
-                kk)
+                ctx.qf, pool, ctx.norms[row_idx.reshape(-1)], candf, kk,
+                index=flat)
         return ops.dedup_merge_topk(sel_d, sel_i, top_d, top_i)
     rows = pool[gather_idx]
     if pq:

@@ -45,7 +45,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch import obs
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, topk
 from repro_torch.obs import OocStats
 
 from . import refine
@@ -106,7 +106,9 @@ class Refinement:
     summed on the device into ``search.pooled_rows`` and
     ``search.pooled_pairs`` (a dozen small launches, read to the host
     when those counters are read): the work the cooperative score pass
-    does for the answers.
+    does for the answers. Over raw rows the same fold adds the score
+    pass's tiles, scored and skipped, to ``kernels.k4_tiles{state}``
+    (``kernels.topk.count_tiles``, from the slots the step keeps).
 
     fault: the injection hook (duck-typed; serve.fault.FaultContext in
     the engine): ``fault.check("gather")`` runs before every gather and
@@ -224,7 +226,9 @@ class Refinement:
                 # iterations are merged away by id
                 valid = refine.coop_mask(leaf, ok, g.valid)
                 if self.pooled is not None:
-                    self.pooled.append((valid, active))
+                    self.pooled.append(
+                        (valid, active,
+                         refine.live(self.ctx, valid, g.row_idx)))
                     if len(self.pooled) == POOL_FOLD:
                         self._count_pool()
             self.top_d, self.top_i = src.score(self.ctx, g, valid, self.top_d,
@@ -295,12 +299,17 @@ class Refinement:
     def _count_pool(self) -> None:
         """Add the kept iterations' pooled rows and pairs to the counters,
         on the device, and drop them."""
-        masks, lanes = zip(*self.pooled)
+        masks, lanes, kept = zip(*self.pooled)
         self.pooled = []
-        rows = torch.stack(masks).sum((1, 2), dtype=torch.int32)
+        st = torch.stack(masks)
+        rows = st.sum((1, 2), dtype=torch.int32)
         pairs = rows * torch.stack(lanes).sum(1)
         _POOLED_ROWS.inc(rows.sum())
         _POOLED_PAIRS.inc(pairs.sum())
+        if not self.src.pq:  # K4's tiles (the pq corner runs K6)
+            if kept[0] is not masks[0]:  # tombstones folded in
+                st = torch.stack(kept)
+            topk.count_tiles(st.reshape(len(kept), -1), st.shape[1])
 
 
 def refine_loop(src, queries: torch.Tensor, k: int, **kw) -> SearchResult:

@@ -44,8 +44,11 @@ SIGNATURES = {
     "paa": {"paa_f32": (_P, _P, _LL, _I, _I, _F, _P)},
     "l2_dist": {"l2_f32": (_P, _P, _P, _I, _LL, _I, _P),
                 "l2_bf16": (_P, _P, _P, _I, _LL, _I, _P)},
-    "topk": {"coop_score_f32": (_P, _P, _P, _P, _I, _LL, _I, _P),
-             "coop_score_bf16": (_P, _P, _P, _P, _I, _LL, _I, _P)},
+    "topk": {"coop_score_f32": (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
+                                _P),
+             "coop_score_bf16": (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
+                                 _P),
+             "coop_score_tile": (_I,)},
     "pq_adc": {"pq_adc_u8": (_P, _P, _P, _I, _LL, _I, _I, _I, _P)},
     "lex_select": {"lex_select_f32": (_P, _P, _P, _P, _I, _LL, _I, _P,
                                       _P),

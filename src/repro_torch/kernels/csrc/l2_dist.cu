@@ -14,14 +14,14 @@
 
 extern "C" int l2_f32(const void* q, const void* x, void* out, int B,
                       long long M, int n, void* stream) {
-  return (int)gemm::launch_l2_tile<float, false>(
-      static_cast<const float*>(q), static_cast<const float*>(x), nullptr,
+  return (int)gemm::launch_l2_tile<float>(
+      static_cast<const float*>(q), static_cast<const float*>(x),
       static_cast<float*>(out), B, M, n, (cudaStream_t)stream);
 }
 
 extern "C" int l2_bf16(const void* q, const void* x, void* out, int B,
                        long long M, int n, void* stream) {
-  return (int)gemm::launch_l2_tile<__nv_bfloat16, false>(
+  return (int)gemm::launch_l2_tile<__nv_bfloat16>(
       static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(x),
-      nullptr, static_cast<float*>(out), B, M, n, (cudaStream_t)stream);
+      static_cast<float*>(out), B, M, n, (cudaStream_t)stream);
 }

@@ -129,12 +129,17 @@ def ref_coop_score_select(q, rows, row_norms, ids, kk: int):
     ``kk`` lexicographically smallest (d, id) pairs, masked slots (id -1)
     at +inf, sorted by (d, id) (:func:`ref_lex_select`). Precondition:
     real ids are distinct in the pool; only the -1 placeholder repeats."""
+    return ref_lex_select(ref_coop_scores(q, rows, row_norms), ids, kk)
+
+
+def ref_coop_scores(q, rows, row_norms) -> torch.Tensor:
+    """Every lane's score [B, R] against every row: |q|^2 - 2 q.x + |x|^2
+    with the norms passed in, clamped at 0 (K4's score pass)."""
     qf = q.float()
     rf = rows.float()
     qn = (qf * qf).sum(-1)[:, None]
-    d = torch.clamp_min(qn - 2.0 * (qf @ rf.T)
-                        + row_norms.float()[None, :], 0.0)
-    return ref_lex_select(d, ids, kk)
+    return torch.clamp_min(qn - 2.0 * (qf @ rf.T)
+                           + row_norms.float()[None, :], 0.0)
 
 
 def ref_pq_adc(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:

@@ -133,6 +133,119 @@ def test_coop_score_select_large_kk_on_card(cuda, kk):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+K4_PASS_CASES = {
+    # the reference's main path: 100 lanes, one 104-lane tile
+    "b100": (100, 25_600),
+    # the search cell's size: 256 lanes x 8 leaf windows of 512 slots,
+    # ~20% of the slots in whole masked leaves; two 128-lane tiles
+    "b256": (256, 1 << 20),
+    # one lane past two 128-lane tiles (so three of 104) and a ragged
+    # last row tile
+    "b257": (257, 30_001),
+}
+
+
+def _k4_pool(cuda, case, kind):
+    """K4's inputs as the cooperative step makes them: the slots' rows are
+    leaves of up to 512 rows (the leaf's tail masked) read through an
+    index into a source of 300,000 rows, every fifth leaf masked whole
+    (a copy of a leaf another lane pooled); "normal" values, or small
+    integers, whose every sum is exact in f32."""
+    b, r = K4_PASS_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(r)
+    n_src, n = 300_000, 256
+    if kind == "integer":
+        q = torch.randint(-2, 3, (b, n), generator=g, device=cuda).float()
+        src = torch.randint(-2, 3, (n_src, n), generator=g,
+                            device=cuda).float()
+    else:
+        q = torch.randn(b, n, generator=g, device=cuda)
+        src = torch.randn(n_src, n, generator=g, device=cuda)
+    leaves = -(-r // 512)
+    start = torch.randint(0, n_src - 512, (leaves,), generator=g,
+                          device=cuda)
+    size = torch.randint(440, 513, (leaves,), generator=g, device=cuda)
+    pos = torch.arange(512, device=cuda)
+    index = (start[:, None] + pos).reshape(-1)[:r].contiguous()
+    keep = ((pos[None, :] < size[:, None])
+            & (torch.arange(leaves, device=cuda) % 5 != 3)[:, None])
+    ids = torch.randperm(r, generator=g, device=cuda).to(torch.int32)
+    ids = torch.where(keep.reshape(-1)[:r], ids, -1)
+    norms = ops.row_sq_norms(src)[index]
+    return q, src, index, norms, ids
+
+
+@pytest.mark.parametrize("kind", ["normal", "integer"])
+@pytest.mark.parametrize("case", sorted(K4_PASS_CASES))
+def test_k4_index_pass_equals_the_dense_pass_on_card(cuda, case, kind):
+    """K4 reading its rows through the index, skipping the masked tiles,
+    with the lane tile of the batch: every kept slot's score is
+    bit-identical to the dense formulation's (the gathered pool passed
+    as rows, the call the cooperative step made before), and so is the
+    selection. On small integers both are exact, so they also equal the
+    plain version bit for bit."""
+    from repro_torch.kernels import topk
+
+    q, src, index, norms, ids = _k4_pool(cuda, case, kind)
+    dense = src[index]
+    kept = ids >= 0
+    got = topk.score_pass(q, src, norms, ids, index)
+    want = topk.score_pass(q, dense, norms, ids)
+    assert torch.equal(got[:, kept], want[:, kept])
+    kk = 200
+    before = ops.coop_score_select.launches
+    out = ops.coop_score_select(q, src, norms, ids, kk, index=index)
+    old = ops.coop_score_select(q, dense, norms, ids, kk)
+    assert ops.coop_score_select.launches == before + 2
+    assert torch.equal(out[0], old[0]) and torch.equal(out[1], old[1])
+    plain = ref.ref_coop_scores(q, dense, norms)
+    if kind == "integer":
+        assert torch.equal(got[:, kept], plain[:, kept])
+        want = ref.ref_coop_score_select(q, dense, norms, ids, kk)
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+    else:
+        torch.testing.assert_close(got[:, kept], plain[:, kept], **TOL)
+    if case == "b256":
+        assert 0.21 <= 1 - kept.float().mean().item() <= 0.30
+
+
+def test_k4_library_tile_is_the_one_counted_on_card(cuda):
+    """kernels.k4_tiles counts by topk.ROW_TILE and LANE_TILES: the
+    library's own tile (coop_score_tile) is the same."""
+    from repro_torch.kernels import build, topk
+
+    lib = build.library("topk")
+    assert (tuple(lib.coop_score_tile(i) for i in range(3))
+            == (topk.ROW_TILE,) + topk.LANE_TILES)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_index_pass_bf16_and_fully_masked_on_card(cuda, dtype):
+    """bf16 rows through the index give the dense pass's kept scores bit
+    for bit; a fully masked pool returns only (inf, -1)."""
+    from repro_torch.kernels import topk
+
+    q, src, index, norms, ids = _k4_pool(cuda, "b257", "normal")
+    src = src.to(dtype)
+    kept = ids >= 0
+    got = topk.score_pass(q, src, norms, ids, index)
+    want = topk.score_pass(q, src[index], norms, ids)
+    assert torch.equal(got[:, kept], want[:, kept])
+    ids[:] = -1
+    d, i = ops.coop_score_select(q, src, norms, ids, 300, index=index)
+    assert bool((i == -1).all()) and bool(torch.isinf(d).all())
+
+
+def test_k3_exact_at_the_brute_force_shape_on_card(cuda):
+    """K3 at the main path's brute-force shape (100 x 2^20 x 256), on
+    small integers: exact, so bit-equal to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randint(-2, 3, (100, 256), generator=g, device=cuda).float()
+    x = torch.randint(-2, 3, (1 << 20, 256), generator=g,
+                      device=cuda).float()
+    assert torch.equal(ops.l2(q, x), ref.ref_l2(q, x))
+
+
 def test_pq_adc_select_negative_tables_on_card(cuda):
     rng = np.random.default_rng(11)
     luts = torch.as_tensor(rng.random((9, 16, 256), dtype=np.float32) * 4
