@@ -1,6 +1,7 @@
 """The harness's pieces at a tiny size, with the port on the CPU: the
-result line, the traced run, the faults that ``correct`` has to catch,
-and ``run.py``'s refusal without a card."""
+result line of every cell of BENCHMARK.json at its own rank count, the
+traced run, the faults that ``correct`` has to catch, and ``run.py``'s
+refusal without a card."""
 
 import json
 import os
@@ -14,10 +15,13 @@ import torch
 from portbench import faults
 from portbench.bench import devtrace
 from portbench.bench.harness import run_cell
+from portbench.bench.launch import spawn
 from portbench.bench.spec import PB, ROOT, Spec
 from portbench.tests import tiny
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
+CELLS = json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]
+SEED = 2 ** 31 + 11
 
 
 @pytest.fixture(scope="module")
@@ -30,21 +34,38 @@ def window(monkeypatch):
     tiny.long_window(monkeypatch)
 
 
-def _run(root, cell, trace=False, seed=2 ** 31 + 11):
+def _run(root, cell, trace=False, seed=SEED):
     return run_cell(Spec(root), cell, seed, tiny.SECONDS, trace,
                     t0=time.perf_counter(), device="cpu")
 
 
-@pytest.mark.parametrize("cell", ["search2m-coop.b256",
-                                  "search2m-solo.b256"])
+@pytest.mark.parametrize("cell", CELLS, ids=[w["name"] for w in CELLS])
 def test_the_last_line_of_an_untraced_run(root, cell):
-    out = _run(root, cell)
+    """Each cell as BENCHMARK.json has it, on as many ranks as it asks
+    for: one in this process, more as rank processes over gloo
+    (``bench/launch.py``), whose timed window is ``tiny.SECONDS`` long."""
+    name, chips = cell["name"], cell["chips"]
+    assert name in tiny.cells(root), \
+        f"{name} has no tiny cut (test_every_configuration_and_traffic_" \
+        "has_a_tiny_cut names the file)"
+    batch = Spec(root).traffic(cell["traffic"])["batch"]
+    if chips == 1:
+        out = _run(root, name)
+        assert out["attempted"] >= batch * tiny.MIN_BATCHES
+    else:
+        rc, line, err = spawn(root, dict(workload=name, seed=SEED,
+                                         seconds=tiny.SECONDS, trace=False,
+                                         t0=time.perf_counter()),
+                              chips, "cpu", tiny.RANK_TIMEOUT)
+        assert rc == 0 and line is not None, err
+        out = json.loads(line)
+    assert out["device"]["count"] == chips
     assert list(out)[:5] == KEYS and list(out)[-1] == "checks"
     assert out["correct"] is True and out["failed"] == 0
-    assert out["attempted"] >= 8 and out["attempted"] % 8 == 0
-    bench = json.loads((root / "BENCHMARK.json").read_text())
-    assert set(out["metrics"]) == {m["name"] for m in bench["end_to_end"]}
-    for m in bench["end_to_end"]:
+    assert out["attempted"] >= batch and out["attempted"] % batch == 0
+    end_to_end = Spec(root).metrics(name, False)
+    assert set(out["metrics"]) == {m["name"] for m in end_to_end}
+    for m in end_to_end:
         got = out["metrics"][m["name"]]
         assert got["unit"] == m["unit"] and got["value"] > 0
     assert 0 < out["metrics"]["map"]["value"] <= 1
@@ -53,7 +74,6 @@ def test_the_last_line_of_an_untraced_run(root, cell):
     assert out["checks"]["bad_lanes"] == {"value": 0, "limit": 0}
     assert list(out["checks"]) == ["bad_lanes", "sq_dist_gap",
                                    "map_shortfall"]
-    assert out["attempted"] >= 8 * tiny.MIN_BATCHES
     json.dumps(out)
 
 

@@ -1,7 +1,10 @@
-"""The launch of a cell on several ranks, rehearsed on the CPU: two rank
+"""The launch of a cell on several ranks, rehearsed on the CPU: a cell of
+one card, at its tiny cut (``tests/tiny/``), started on two rank
 processes over gloo (``repro_torch.launch.mesh.init_world``), each with
 one shard of the collection in the port's mesh engine; rank 0 prints
-the one result line."""
+the one result line. A cell is rehearsed at its own rank count, as many
+as its ``chips``, by ``test_the_last_line_of_an_untraced_run``; this
+test keeps a world of two whatever the cells ask for."""
 
 import json
 

@@ -1,15 +1,30 @@
 """A copy of the benchmark at a tiny size, for the CPU tests: the same
-BENCHMARK.json and files, with each configuration's collection cut to
-2,048 series of the published length 256 and the traffic to batches of
-8 queries (ng nprobe 8, visit_batch 2, one warm batch), and a timed
-window of at least 12 batches.
+BENCHMARK.json and files, each configuration and traffic mix cut by a
+file of its own, found by name as the harness finds everything else.
+A cell of one card runs in the test's process with a timed window of
+at least 12 batches; a cell of more runs on as many rank processes over
+gloo (``bench/launch.py``), whose windows last ``SECONDS``.
 
-At that size ng visits 8 of some 40 leaves, so its answers fall further
-short of the exact k nearest than the cell's do, and each configuration
-takes a ``map_shortfall`` limit of the tiny size's own: over ten seeds
-sound runs read at most 0.024 (coop) and 0.121 (solo), and the faults
-that keep distances true to their ids (``faults.py``: wrong_leaves,
-half_probes, half_pool) at least 0.073 and 0.319."""
+    tests/tiny/configs/<config>.json    the cut of a configuration
+    tests/tiny/traffic/<traffic>.json   the cut of a traffic mix
+
+A cut is a partial object, merged key by key over the copied file
+(:func:`merge`). A configuration or traffic mix without a cut is left
+out of the copy, with its entries and its cells in BENCHMARK.json;
+``test_every_configuration_and_traffic_has_a_tiny_cut`` names the file
+to add. So a new configuration, traffic mix, cell or metric is new
+files and entries alone, here as in the harness.
+
+The cuts of today: each search configuration's collection cut to 2,048
+series of the published length 256 in leaves of at most 64, and the
+traffic to batches of 8 queries (ng nprobe 8, visit_batch 2, one warm
+batch). At that size ng visits 8 of some 40 leaves, so its answers fall
+further short of the exact k nearest than the cell's do, and each
+configuration takes a ``map_shortfall`` limit of the tiny size's own:
+over ten seeds sound runs read at most 0.024 (coop) and 0.121 (solo),
+and the faults that keep distances true to their ids (``faults.py``:
+wrong_leaves, half_probes, half_pool) at least 0.073 and 0.319, so the
+cuts hold coop to 0.045 and solo to 0.2."""
 
 from __future__ import annotations
 
@@ -20,33 +35,67 @@ from pathlib import Path
 from portbench.bench import harness
 from portbench.bench.spec import PB, ROOT
 
-N_SERIES = 2048
 SECONDS = 0.2
 MIN_BATCHES = 12
-MAP_SHORTFALL = {"search2m-coop": 0.045, "search2m-solo": 0.2}
+RANK_TIMEOUT = 240.0   # seconds the rank processes of a tiny cell may run
 
 
-def make_root(tmp: Path) -> Path:
-    """A checkout-like directory under ``tmp``: BENCHMARK.json and a copy
-    of the benchmark's directory, cut to the tiny size."""
+def cut_dir(src: Path = ROOT) -> Path:
+    """The cut files of the benchmark checked out at ``src``."""
+    return src / PB.name / "tests" / "tiny"
+
+
+def merge(base: dict, cut: dict) -> dict:
+    """``base`` with every key of ``cut``: an object merged key by key,
+    anything else put in its place."""
+    out = dict(base)
+    for k, v in cut.items():
+        out[k] = (merge(out[k], v)
+                  if isinstance(v, dict) and isinstance(out.get(k), dict)
+                  else v)
+    return out
+
+
+def missing_cuts(src: Path = ROOT) -> list:
+    """The cut files that the configurations of ``src``'s BENCHMARK.json
+    and its traffic mixes lack."""
+    bench = json.loads((src / "BENCHMARK.json").read_text())
+    want = [cut_dir(src) / "configs" / f"{c['name']}.json"
+            for c in bench["configs"]]
+    want += [cut_dir(src) / "traffic" / p.name
+             for p in sorted((src / PB.name / "traffic").glob("*.json"))]
+    return [p for p in want if not p.is_file()]
+
+
+def make_root(tmp: Path, src: Path = ROOT) -> Path:
+    """A checkout-like directory under ``tmp``: the BENCHMARK.json and a
+    copy of the benchmark's directory of the checkout at ``src``, cut to
+    the tiny size."""
     root = tmp / "root"
     root.mkdir()
-    shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
-    shutil.copytree(PB, root / PB.name,
+    shutil.copytree(src / PB.name, root / PB.name,
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    bench = json.loads((root / "BENCHMARK.json").read_text())
-    for c in bench["configs"]:
-        p = root / c["file"]
-        cfg = json.loads(p.read_text())
-        cfg["collection"]["n_series"] = N_SERIES
-        cfg["index"]["leaf_cap"] = 64
-        cfg["limits"]["map_shortfall"] = MAP_SHORTFALL[c["name"]]
-        p.write_text(json.dumps(cfg))
-    for p in (root / PB.name / "traffic").glob("*.json"):
-        t = json.loads(p.read_text())
-        t.update(batch=8, visit_batch=2, warm_batches=1)
-        t["guarantee"]["nprobe"] = 8
-        p.write_text(json.dumps(t))
+    bench = json.loads((src / "BENCHMARK.json").read_text())
+    cuts = cut_dir(src)
+
+    def cut(path: Path, cut_file: Path) -> bool:
+        if not cut_file.is_file():
+            path.unlink()
+            return False
+        path.write_text(json.dumps(merge(json.loads(path.read_text()),
+                                         json.loads(cut_file.read_text()))))
+        return True
+
+    bench["configs"] = [c for c in bench["configs"]
+                        if cut(root / c["file"],
+                               cuts / "configs" / f"{c['name']}.json")]
+    traffic = {p.stem for p in (root / PB.name / "traffic").glob("*.json")
+               if cut(p, cuts / "traffic" / p.name)}
+    configs = {c["name"] for c in bench["configs"]}
+    bench["workloads"] = [w for w in bench["workloads"]
+                          if w["config"] in configs
+                          and w["traffic"] in traffic]
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root
 
 
