@@ -94,7 +94,14 @@ reference's taxonomy (docs/OBSERVABILITY.md). A build is an
 path's waits for the device count under ``search.host_reads{site}``:
 ``shard_ids`` and ``dead_mask`` (the write tier's masks, once a kill
 set), ``mesh_flag`` (each lockstep step's all_reduce) and
-``mesh_gather`` (the answers' all_gather).
+``mesh_gather`` (the answers' all_gather). On a mesh, always-on
+counters time the merge on the host clock, at points where the host
+waits already: ``engine.mesh_s{part=loop}`` the rank's own search
+(from the query's entry to its own answer), ``engine.mesh_s{part=gather}``
+the all_gather up to the tails on the host (the wait for the slowest
+shard, then the exchange), ``engine.gathers`` the gathers, and
+``engine.mesh_spread_s`` the slowest shard's search less the fastest's,
+each rank's loop time travelling in the tail it gathers anyway.
 """
 
 from __future__ import annotations
@@ -132,6 +139,10 @@ _MESH_FLAG = obs.read_site("mesh_flag")
 _MESH_GATHER = obs.read_site("mesh_gather")
 _BUILD_S = {p: REGISTRY.gauge("engine.build_s", phase=p)
             for p in ("histogram", "index", "pad", "total")}
+_MESH_S = {p: REGISTRY.counter("engine.mesh_s", part=p)
+           for p in ("loop", "gather")}
+_GATHERS = REGISTRY.counter("engine.gathers")
+_MESH_SPREAD = REGISTRY.counter("engine.mesh_spread_s")
 
 
 @contextlib.contextmanager
@@ -237,38 +248,51 @@ def _group_min_bsf(lay, bsf: torch.Tensor, going: bool) -> tuple:
         return v[:-1], obs.host_read(_MESH_FLAG, float, v[-1]) == 0.0
 
 
-def _gather_results(lay, res: SearchResult) -> list:
+def _gather_results(lay, res: SearchResult, loop_s: float) -> list:
     """Every shard's SearchResult in shard order, from one all_gather
     over the shard group: the distances (their f32 bits), ids, visit
-    counts, lb_computed and iterations travel as one int32 tensor."""
+    counts, lb_computed, iterations and the rank's ``loop_s`` (its own
+    search, in whole microseconds) travel as one int32 tensor. Counts
+    the gather's host seconds and the spread of the loop times (the
+    module's ``engine.*`` counters; the span's ``spread_s``)."""
     b, k = res.ids.shape
     dev = res.ids.device
-    with obs.span("engine.gather_results"):
+    t0 = obs.now()
+    with obs.span("engine.gather_results") as sp:
         mine = torch.cat([
             res.dists.float().contiguous().view(torch.int32).reshape(-1),
             res.ids.to(torch.int32).reshape(-1),
             res.leaves_visited.to(torch.int32),
             res.rows_scanned.to(torch.int32),
             obs.host_read(_MESH_GATHER, torch.tensor,
-                          [res.lb_computed, res.iterations],
+                          [res.lb_computed, res.iterations,
+                           round(loop_s * 1e6)],
                           dtype=torch.int32, device=dev)])
         parts = [torch.empty_like(mine) for _ in lay.shard_of]
         dist.all_gather(parts, mine, group=lay.group)
         tails = obs.host_read(_MESH_GATHER,
-                              torch.stack([p[-2:] for p in parts]).tolist)
+                              torch.stack([p[-3:] for p in parts]).tolist)
+        gather_s = obs.now() - t0
+        loops = [t[2] for t in tails]
+        spread_s = (max(loops) - min(loops)) * 1e-6
+        sp.set(spread_s=spread_s)
+    _MESH_S["loop"].inc(loop_s)
+    _MESH_S["gather"].inc(gather_s)
+    _GATHERS.inc()
+    _MESH_SPREAD.inc(spread_s)
     out = [None] * lay.count
-    for p, (lb, iters), si in zip(parts, tails, lay.shard_of):
-        d, i, lv, rs, _ = p.split([b * k, b * k, b, b, 2])
+    for p, (lb, iters, _), si in zip(parts, tails, lay.shard_of):
+        d, i, lv, rs, _ = p.split([b * k, b * k, b, b, 3])
         out[si] = SearchResult(d.view(torch.float32).reshape(b, k),
                                i.reshape(b, k), lv, rs, lb, iters)
     return out
 
 
-def _gather_served(lay, mine, b: int, k: int, dev) -> dict:
+def _gather_served(lay, mine, b: int, k: int, dev, loop_s: float) -> dict:
     """Every shard's (OocResult, ShardServeInfo) by shard, None for a
     shard lost past its copies: the answers through
-    :func:`_gather_results`, the stats and serve infos through one
-    all_gather_object."""
+    :func:`_gather_results` (``loop_s`` this rank's serving), the stats
+    and serve infos through one all_gather_object."""
     from repro_torch.store.ooc import OocResult
 
     if mine is None:  # lost: a placeholder answer, dropped from the fold
@@ -280,7 +304,7 @@ def _gather_served(lay, mine, b: int, k: int, dev) -> dict:
         meta = None
     else:
         res, meta = mine[0].result, (mine[0].stats, mine[1])
-    results = _gather_results(lay, res)
+    results = _gather_results(lay, res, loop_s)
     metas = [None] * len(lay.shard_of)
     dist.all_gather_object(metas, meta, group=lay.group)
     out = {}
@@ -859,6 +883,7 @@ class DistributedEngine:
         device mask per shard, padded to its padded rows and kept until
         the kill set moves), r_delta uses the joint N, and the segments
         and the memtable are folded in after."""
+        t0 = obs.now()
         dev = self.resident[0].device
         q = torch.as_tensor(queries, device=dev)
         dead = [None] * len(self.resident)
@@ -901,7 +926,7 @@ class DistributedEngine:
                     r.step()
         res = [r.finish() for r in runs]
         if lay is not None:
-            res = _gather_results(lay, res[0])
+            res = _gather_results(lay, res[0], obs.now() - t0)
         b = q.shape[0]
         with obs.span("engine.merge"):
             md = torch.stack([r.dists for r in res], 1).reshape(b, -1)
@@ -1016,6 +1041,7 @@ class DistributedEngine:
         from repro_torch.serve import fault as sfault
         from repro_torch.store import search_ooc
 
+        t0 = obs.now()
         if not self.shard_dirs:
             raise ValueError("no spilled shards: build with a spill_dir "
                              "or open_spill() first")
@@ -1096,7 +1122,8 @@ class DistributedEngine:
                 REGISTRY.counter("engine.shard.bytes_read", shard=str(si)).inc(
                     out.stats.bytes_read)
             if lay is not None:
-                served = _gather_served(lay, served[lay.index], b, k, dev)
+                served = _gather_served(lay, served[lay.index], b, k, dev,
+                                        obs.now() - t0)
             for si in range(n_sh):
                 if served[si] is None:
                     lost.append(si)

@@ -96,7 +96,7 @@ def _merge_collectives(mesh, batch: int, k: int) -> list:
                        torch.zeros(batch, dtype=torch.int32),
                        torch.zeros(batch, dtype=torch.int32), 0, 0)
     with roof.CollectiveRecorder() as rec:
-        _gather_results(lay, res)
+        _gather_results(lay, res, 0.0)
     return rec.records
 
 

@@ -268,9 +268,10 @@ def test_lower_search_on_a_mesh_equals_the_reference(dry, reference_search):
     assert t["memory"] == pytest.approx(
         wt["memory"] * 819e9 / roofline.HBM_BW, rel=1e-12)
     # the engine's merge: one all-gather over the 8 shards a query batch,
-    # its int32 payload: dists and ids [B, k], two counts [B], two scalars
+    # its int32 payload: dists and ids [B, k], two counts [B], three
+    # scalars (lb_computed, iterations, the rank's loop microseconds)
     b, k = SEARCH["batch"], SEARCH["k"]
-    payload = (2 * b * k + 2 * b + 2) * 4
+    payload = (2 * b * k + 2 * b + 3) * 4
     assert rep["n_collectives"] == 1
     assert rep["top_collectives"] == [
         {"op": "all-gather", "wire_bytes": 8 * payload * 7 / 8, "group": 8}]

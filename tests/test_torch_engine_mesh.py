@@ -22,7 +22,10 @@ Parity (ROADMAP "Parity rules"): ids equal, distances within DIST_TOL
 rows_scanned and lb_computed equal, with and without sync_bsf. Every
 rank returns the same answer bit for bit (the model replicas and the
 shards alike), out of core equals resident bit for bit, and a mesh
-engine equals the one-card engine of as many shards bit for bit.
+engine equals the one-card engine of as many shards bit for bit, solo
+and cooperative (``share_gathers``). The merge's counters
+(``engine.mesh_s``, ``engine.gathers``, ``engine.mesh_spread_s``) move
+once a gather on every rank, and not at all on one card.
 """
 
 import inspect
@@ -84,9 +87,14 @@ def write_rows(data):
     return data[:3] * 0.5 + 0.1
 
 
+# the merge's counters, as obs.REGISTRY.snapshot names them
+MESH_COUNTERS = ("engine.mesh_s{part=loop}", "engine.mesh_s{part=gather}",
+                 "engine.gathers", "engine.mesh_spread_s")
+
 PRELUDE = "\n".join([
     "import json, os, sys", "import numpy as np",
     f"MESHES = {MESHES!r}", f"GNAMES = {GNAMES!r}",
+    f"MESH_COUNTERS = {MESH_COUNTERS!r}",
     f"INSERT_IDS = {INSERT_IDS!r}",
     inspect.getsource(mesh_a_data), inspect.getsource(mesh_b_data),
     inspect.getsource(write_rows),
@@ -109,6 +117,7 @@ PORT_RANK = PRELUDE + textwrap.dedent("""
     from repro_torch.core.engine import DistributedEngine
     from repro_torch.core.spec import IndexSpec, StoreSpec
     from repro_torch.launch import mesh as M
+    from repro_torch.obs import REGISTRY as REG
 
     rank, out = int(sys.argv[1]), sys.argv[2]
     M.init_world("cpu", store=dist.FileStore(os.path.join(out, "rdv"), 4),
@@ -139,6 +148,18 @@ PORT_RANK = PRELUDE + textwrap.dedent("""
                 put(f"{m}.{g}.{sync}", r, r.iterations)
             r = eng.query(q, k, GS[g], ooc=True)
             put(f"{m}.{g}.ooc", r, r.iterations)
+        # cooperative, each guarantee with and without lockstep; the
+        # merge's counters over these queries alone
+        before = REG.snapshot("engine.")
+        for g in GNAMES:
+            for sync in (0, 1):
+                r = eng.query(q, k, GS[g], sync_bsf=bool(sync),
+                              share_gathers=True)
+                put(f"{m}.{g}.{sync}.coop", r, r.iterations)
+        after = REG.snapshot("engine.")
+        for c in MESH_COUNTERS:
+            res[f"{m}.counter.{c}"] = np.asarray(
+                after.get(c, 0) - before.get(c, 0), dtype=np.float64)
         if m == "a":
             eng.insert(write_rows(data), ids=np.asarray(INSERT_IDS))
             eng.delete(np.asarray([int(res["a.exact.0.i"][0, 0]),
@@ -371,19 +392,25 @@ def test_a_build_kept_on_disk_serves_out_of_core(port_world, mesh):
                                       got[f"{mesh}.exact.0{f}"])
 
 
-@pytest.mark.parametrize("mesh,gname,sync", [
-    (m, g, s) for m in sorted(MESHES) for g in GNAMES for s in (0, 1)])
-def test_mesh_equals_the_one_card_engine(port_world, mesh, gname, sync):
+@pytest.mark.parametrize("mesh,gname,sync,share", [
+    pytest.param(m, g, s, share, id=f"{m}-{g}-{s}" + ("-coop" if share
+                                                     else ""))
+    for m in sorted(MESHES) for g in GNAMES for s in (0, 1)
+    for share in (False, True)])
+def test_mesh_equals_the_one_card_engine(port_world, mesh, gname, sync,
+                                         share):
     """A mesh engine of S shards answers as the one-card engine with
     ``shards=S`` does, bit for bit: the same shards, padded alike, the
-    same lockstep, the same merge."""
+    same lockstep, the same merge; solo, and cooperative
+    (``share_gathers``: each shard's rows scored against every lane)."""
     shape, names, axes, method, cap, k = MESHES[mesh]
     data, q = (mesh_a_data if mesh == "a" else mesh_b_data)()
     n = int(np.prod([shape[names.index(a)] for a in axes]))
     eng = DistributedEngine(shards=n, method=method, device="cpu")
     eng.build(data, index=IndexSpec(method, leaf_cap=cap))
-    r = eng.query(q, k, PORT_G[gname], sync_bsf=bool(sync))
-    key = f"{mesh}.{gname}.{sync}"
+    r = eng.query(q, k, PORT_G[gname], sync_bsf=bool(sync),
+                  share_gathers=share)
+    key = f"{mesh}.{gname}.{sync}" + (".coop" if share else "")
     got = port_world[0]
     assert torch.equal(r.dists, torch.as_tensor(got[key + ".d"]))
     assert torch.equal(r.ids, torch.as_tensor(got[key + ".i"]))
@@ -391,6 +418,48 @@ def test_mesh_equals_the_one_card_engine(port_world, mesh, gname, sync):
     assert torch.equal(r.rows_scanned, torch.as_tensor(got[key + ".rs"]))
     assert r.lb_computed == int(got[key + ".lb"])
     assert list(r.iterations) == got[key + ".it"].tolist()
+
+
+@pytest.mark.parametrize("case", ["a", "b", "one_card"])
+def test_the_merge_counters(port_world, case):
+    """Over the cooperative queries of a mesh (four guarantees, with and
+    without lockstep): one gather a query on every rank, the rank's own
+    loop and the gather's wait both positive, and the spread of the
+    shards' loop times, gathered with the answers, at least 0 and the
+    same on every rank of a shard group. The one-card engine (no mesh,
+    as every single-card cell runs it) leaves every merge counter where
+    it was."""
+    if case == "one_card":
+        data, q = mesh_a_data()
+        eng = DistributedEngine(shards=2, device="cpu")
+        eng.build(data, index=IndexSpec("dstree", leaf_cap=32))
+        before = obs.REGISTRY.snapshot("engine.")
+        eng.query(q, 5, PORT_G["ng"], share_gathers=True)
+        eng.query(q, 5, PORT_G["ng"], sync_bsf=True)
+        after = obs.REGISTRY.snapshot("engine.")
+        for c in MESH_COUNTERS:
+            assert after.get(c, 0) == before.get(c, 0), c
+        return
+    got = [{c: float(port_world[r][f"{case}.counter.{c}"])
+            for c in MESH_COUNTERS} for r in range(WORLD)]
+    queries = 2 * len(GNAMES)
+    for g in got:
+        assert g["engine.gathers"] == queries
+        assert g["engine.mesh_s{part=loop}"] > 0
+        assert g["engine.mesh_s{part=gather}"] > 0
+        assert g["engine.mesh_spread_s"] >= 0
+    # the same on every rank of a shard group (the ranks that share the
+    # coordinates off the shard axes): whole microseconds, summed onto
+    # totals that differ by group, so equal to a nanosecond
+    shape, names, axes, *_ = MESHES[case]
+    coords = np.stack(np.unravel_index(np.arange(WORLD), shape), 1)
+    first = {}
+    for r in range(WORLD):
+        off = tuple(int(coords[r][i]) for i, a in enumerate(names)
+                    if a not in axes)
+        want = first.setdefault(off, got[r]["engine.mesh_spread_s"])
+        assert got[r]["engine.mesh_spread_s"] == pytest.approx(want,
+                                                               abs=1e-9)
 
 
 def test_spill_written_once_per_shard(port_world, launched):
