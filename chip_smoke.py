@@ -268,8 +268,9 @@ Phases, each of which fails the run by raising:
      in-memory path for K1-K4 and lex_select, the out-of-core path for K5
      and K6; ``launches_by_path`` gives every path's. A line splits K4
      and K6 into their score and select passes, and K3 and lex_select at
-     the HNSW build's block, lex_select at kk = 1200 and 4096 and K1 at
-     D = 64 are timed too.
+     the HNSW build's block, lex_select at the search cell's selection
+     (B = 256, R = 1,001,472, kk = 200) and at kk = 1200 and 4096 and K1
+     at D = 64 are timed too.
 
 Each phase's wall seconds are printed on a line of their own (``phase N
 name: S s``). Prints a ``{"serving": ...}`` line, an ``{"llm": ...}``
@@ -1185,11 +1186,13 @@ def kernel_rows(torch, ops, ref, build, data_t, q_t, idx, vaf, k, counts,
 def shape_rows(torch, ops, ref, data_t, q_t):
     """Kernels at shapes beside the main path's, timed beside their bound:
     K3 and lex_select at the HNSW build's level-0 block (512 lanes against
-    2^20 members, kk = 8, unstaged; the baselines phase held the same
-    inputs against the plain versions), then, each checked bit-equal
-    against its plain version first, lex_select at kk = 1200 and 4096
-    (the sort through device memory) and K1 at D = 64 (chunks of 32
-    dims)."""
+    2^20 members, kk = 8, the split path; the baselines phase held the
+    same inputs against the plain versions), then, each checked bit-equal
+    against its plain version first, lex_select at the search cell's
+    selection (B = 256, R = 1,001,472, kk = 200: the split path, 18% of
+    the 128-slot tiles masked and their scores never written; the bound
+    reads the kept scores once), at kk = 1200 and 4096 (the sort through
+    device memory) and K1 at D = 64 (chunks of 32 dims)."""
     out = []
 
     def add(name, shape, fn, n_bytes, n_ops, rate=PEAK_F32_INSTR):
@@ -1218,6 +1221,22 @@ def shape_rows(torch, ops, ref, data_t, q_t):
         lambda: ops.lex_select(d, ids, 8),
         4 * (blk * n_rows + n_rows) + 8 * blk * 8, blk * n_rows)
     del d
+    r, bc, kc = min(1_001_472, n_rows), 256, 200
+    g = torch.Generator(device="cuda").manual_seed(35)
+    qc = data_t[torch.randint(n_rows, (bc,), generator=g, device="cuda")]
+    qc = qc + 0.05 * torch.randn(bc, n, generator=g, device="cuda")
+    d = ops.l2(qc, data_t[:r])
+    ids = torch.randperm(n_rows, generator=g, device="cuda")[:r].int()
+    tiles = torch.rand(-(-r // 128), generator=g, device="cuda") < 0.18
+    masked = tiles.repeat_interleave(128)[:r]
+    ids[masked] = -1
+    d[:, masked] = float("nan")
+    kept = r - int(masked.sum())
+    add_exact("lex_select", f"B={bc} R={r} kk={kc} (search cell, split)",
+              ops.lex_select(d, ids, kc), ref.ref_lex_select(d, ids, kc),
+              lambda: ops.lex_select(d, ids, kc),
+              4 * (bc * kept + r) + 8 * bc * kc, bc * kept)
+    del d, qc
     b, r = q_t.shape[0], 25600
     s = ops.l2(q_t, data_t[:r])
     ids = torch.arange(r, dtype=torch.int32, device="cuda")

@@ -52,7 +52,7 @@ SIGNATURES = {
     "pq_adc": {"pq_adc_u8": (_P, _P, _P, _I, _LL, _I, _I, _I, _P)},
     "lex_select": {"lex_select_f32": (_P, _P, _P, _P, _I, _LL, _I, _P,
                                       _P),
-                   "lex_select_scratch_buffers": (_I,)},
+                   "lex_select_limit": (_I,)},
 }
 
 # one loaded library per source for the process, filled under _lock

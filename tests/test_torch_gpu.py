@@ -16,8 +16,10 @@ from repro_torch.core import search
 from repro_torch.core.index import FrozenIndex
 from repro_torch.core.indexes import (dstree, graph, imi, isax, qalsh, srs,
                                       vafile)
+from repro_torch import obs
 from repro_torch.data import queries, randomwalk
 from repro_torch.device import to_device
+from repro_torch.kernels import lex_select as lex
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.gpu
@@ -301,6 +303,72 @@ def test_lex_select_past_shared_memory_on_card(cuda, kk):
     got, want = ops.lex_select(d, ids, kk), ref.ref_lex_select(d, ids, kk)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert ops.lex_select.launches == before + 1
+
+
+def _unwritten_scores(cuda, b, r, seed, ties=False):
+    """Scores [b, r] as K4 leaves them at the search cell: distinct ids,
+    18% of the 128-slot tiles masked (ids -1) and never written (NaN
+    here: the selection must not read them), with ties on small
+    integers."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if ties:
+        s = torch.randint(0, 9, (b, r), generator=g, device=cuda).float()
+    else:
+        s = torch.rand(b, r, generator=g, device=cuda) * 400 + 100
+    ids = torch.randperm(4 * r, generator=g, device=cuda)[:r].int()
+    tiles = torch.rand(-(-r // 128), generator=g, device=cuda) < 0.18
+    masked = tiles.repeat_interleave(128)[:r]
+    ids[masked] = -1
+    s[:, masked] = float("nan")
+    return s, ids
+
+
+@pytest.mark.parametrize("b, r, kk, ties", [
+    (256, 1_001_472, 200, False),  # the search cell's selection
+    (7, 48 * 1024 + 1, 200, False),  # one past the staged lane: 4 chunks
+    (2, 3_000_001, 100, False),    # a small batch of long lanes
+    (3, 200_003, 1024, True),      # the largest kk, ties across chunks
+    (2, 1_001_472, 1024, True),    # chunks' keys past shared memory
+])
+def test_lex_select_split_path_on_card(cuda, b, r, kk, ties):
+    """A lane too long to stage is selected in chunks, then from the
+    chunks' keys: bit-equal to the plain version, ties decided by id,
+    unwritten masked tiles never read."""
+    assert lex.plan(r, kk)[0] == "split"
+    s, ids = _unwritten_scores(cuda, b, r, r + kk, ties)
+    before = ops.lex_select.launches
+    got = ops.lex_select(s, ids, kk)
+    assert ops.lex_select.launches == before + 1
+    step = 32  # the plain version's full sorts, a few lanes at a time
+    for a in range(0, b, step):
+        want = ref.ref_lex_select(s[a:a + step], ids, kk)
+        assert torch.equal(got[0][a:a + step], want[0])
+        assert torch.equal(got[1][a:a + step], want[1])
+
+
+def test_lex_select_counts_calls_by_path_on_card(cuda):
+    """kernels.lex_select{path} counts each call once, under the path
+    its shape takes, while a sink is on, and not otherwise."""
+    s, ids = _unwritten_scores(cuda, 4, 60_000, 1)
+    small, small_ids = s[:, :25_600].contiguous(), ids[:25_600].contiguous()
+
+    def calls():
+        return {p: obs.REGISTRY.counter("kernels.lex_select", path=p).value
+                for p in ("split", "lane")}
+
+    before = calls()
+    ops.lex_select(s, ids, 200)
+    assert calls() == before
+    obs.enable()
+    try:
+        ops.lex_select(s, ids, 200)
+        ops.lex_select(small, small_ids, 200)
+        ops.lex_select(small, small_ids, 200)
+    finally:
+        obs.disable()
+    after = calls()
+    assert after["split"] - before["split"] == 1
+    assert after["lane"] - before["lane"] == 2
 
 
 @pytest.mark.parametrize("dims", [33, 64, 100])
